@@ -1,7 +1,7 @@
-"""clenabled_tpu — a TPU-native streaming SDR block library.
+"""clenabled_tpu — a streaming SDR block library on JAX/XLA.
 
-A brand-new framework with the capabilities of gr-clenabled (ghostop14's
-OpenCL-accelerated GNU Radio blocks), designed TPU-first on JAX/XLA + Pallas:
+A framework with the capabilities of gr-clenabled (ghostop14's
+OpenCL-accelerated GNU Radio blocks), built on JAX/XLA:
 
 - ``runtime``   — device/mesh core, dtype registry, block-size policy
                   (the role of the reference's GRCLBase runtime,
@@ -28,18 +28,12 @@ from clenabled_tpu.runtime import dtypes  # noqa: F401
 
 
 def exact_f32():
-    """Context manager forcing exact-f32 matmul sums on TPU.
+    """Context manager forcing exact-f32 matmul sums.
 
-    TPU MXUs execute f32×f32 matmuls as a SINGLE bf16-operand pass under
-    JAX's default matmul precision — measured on this framework's hot
-    paths: planar FFT 3.1e-3 rel, overlap-save filter 6.2e-3, fused
-    flagship 2.8e-3 versus exact-f32 sums (BENCH_TPU.md round-3 audit).
-    Note this default is LESS accurate than the reference's hot modes:
-    its kernels compile with -cl-fast-relaxed-math
-    (/root/reference/lib/clXEngine_impl.cc:816), which relaxes FP
-    ordering/transcendentals but keeps f32 multiply-adds (~1e-6 class).
-    Wrap accuracy-critical calls in this context to get true f32 sums
-    (measured 1.2-1.7e-7 rel) at ~3× the matmul cost::
+    Under JAX's default matmul precision a GPU may run float32 matmuls in
+    TF32 (about three decimal digits); the reference's kernels keep f32
+    multiply-adds.  Wrap accuracy-critical calls in this context to get
+    true f32 sums::
 
         with clenabled_tpu.exact_f32():
             out = my_jitted_pipeline(x)
@@ -49,11 +43,7 @@ def exact_f32():
     function, not just the first — a later call outside the context
     silently retraces (or cache-switches) back to the default-precision
     executable.  ``streaming.Runner.step`` does exactly this when a
-    precision is configured.  Where wrapping every call is awkward,
-    prefer the per-call ``precision=`` arguments on the fused kernels
-    (``fx_correlate_streams_v2``, ``pfb_oversampled_fused``,
-    ``make_fx_pipeline_fused``) or ``Flowgraph.compile(precision=...)``,
-    which bake exactness into the traced function itself.
+    precision is configured (``Flowgraph.compile(precision=...)``).
     """
     import jax
 

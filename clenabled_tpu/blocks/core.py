@@ -70,7 +70,7 @@ class Fft(Block):
 
     def __init__(self, fft_size: int, direction: int = dsp_fft.FORWARD,
                  window=None, shift: bool = False, num_streams: int = 1,
-                 name: str = "", use_pallas: bool | str = "auto", **legacy):
+                 name: str = "", **legacy):
         strip_legacy_kwargs(legacy, self)
         if window is not None and len(window) != fft_size:
             raise ValueError("window length must equal fft_size")
@@ -82,11 +82,6 @@ class Fft(Block):
         self.quantum = fft_size
         self.n_inputs = num_streams
         self.n_outputs = num_streams
-        # fused single-HBM-pass Pallas FFT for planar streams —
-        # "auto" (round-5 default) routes supported sizes (>= 1024-pt)
-        # to the kernel on TPU backends; see dsp.fft.fft_stream_planar's
-        # final routing table
-        self.use_pallas = use_pallas
 
     def apply(self, state, inputs):
         from clenabled_tpu.dsp import planar
@@ -95,8 +90,7 @@ class Fft(Block):
             if isinstance(x, planar.PC):
                 return dsp_fft.fft_stream_planar(
                     x, self.fft_size, direction=self.direction,
-                    window=self.window, shift=self.shift,
-                    use_pallas=self.use_pallas)
+                    window=self.window, shift=self.shift)
             return dsp_fft.fft_stream(x, self.fft_size,
                                       direction=self.direction,
                                       window=self.window, shift=self.shift)
@@ -281,8 +275,8 @@ def _load_fn_from_file(filename: str, fn_name: str) -> Callable:
 
 class Kernel1To1(Block):
     """clKernel1To1 (lib/clKernel1To1_impl.cc): user-supplied elementwise
-    kernel.  The reference loads OpenCL C from a file; the TPU-native
-    equivalent is a user JAX function (or Pallas kernel) — pass a callable,
+    kernel.  The reference loads OpenCL C from a file; the equivalent here
+    is a user JAX function — pass a callable,
     or a Python file path + function name exactly like the reference's
     (filename, kernelFnName) pair."""
 

@@ -42,10 +42,10 @@ class XCorrelate(Block):
         self.signal_length = signal_length
         self.max_shift = max_search_index
         self.decim_frames = max(1, decim_frames)
-        # >1 dispatches N analysis windows per device call — the lag scan is
-        # dispatch-bound at the reference's 8192-sample default, so batching
-        # windows is the throughput lever (BENCH_TPU.md); results gain a
-        # leading window axis in the "corr" message
+        # >1 dispatches N analysis windows per device call — one 8192-
+        # sample window (the reference's default) per dispatch leaves the
+        # device mostly idle; results gain a leading window axis in the
+        # "corr" message
         self.accumulate_frames = max(1, accumulate_frames)
         self.quantum = signal_length * self.accumulate_frames
 
@@ -127,9 +127,8 @@ class XCorrelateFFTVCF(Block):
         self.perform_fft_first = input_type == 2
         # the per-vector math already batches every vector in the frame in
         # ONE dispatch; accumulate_frames raises the frame quantum so the
-        # Runner feeds ≥N vectors per step — at the reference's 8192-pt
-        # default one vector/dispatch is ~60× slower than batched
-        # (BENCH_TPU.md), so this is the block-API throughput lever
+        # Runner feeds ≥N vectors per step instead of one 8192-pt vector
+        # (the reference's default) per dispatch
         self.accumulate_frames = max(1, accumulate_frames)
         self.quantum = fft_size * self.accumulate_frames
 
@@ -165,11 +164,10 @@ class XEngine(Block):
     live at the tools/streaming layer, not in the math block.
 
     channel_major (default ON for planar mode) marshals integrations into
-    the TPU-fast [F, T, S·P] layout and runs the single-matmul stacked
+    the channel-major [F, T, S·P] layout and runs the single-matmul stacked
     Gram engine (dsp_xengine.xengine_correlate_stacked) — for IChar /
-    packed-4-bit ingest the samples stay int8 all the way to the MXU
-    (s8×s8→s32, exact; 113.7 TFLOP/s useful measured at S=64/2-pol vs
-    9.0 for the round-1 time-major path, BENCH_TPU.md).
+    packed-4-bit ingest the samples stay int8 all the way to the int8
+    matmul (s8×s8→s32, exact).
     """
 
     n_outputs = 0

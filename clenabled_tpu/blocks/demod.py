@@ -12,7 +12,7 @@ from clenabled_tpu.streaming.block import Block
 class QuadratureDemod(Block):
     """clQuadratureDemod (lib/clQuadratureDemod_impl.cc): c→f FM/FSK
     discriminator, gain baked, 1-sample carried history.
-    planar=True streams planar.PC frames (the complex-free TPU path)."""
+    planar=True streams planar.PC frames."""
 
     out_kinds = ("f",)
 
@@ -49,17 +49,13 @@ class CostasLoop(Block):
     on any hardware — the reference's single-work-item GPU kernel manages
     ~0.7 MSPS, README.md:64):
 
-    * default: sequential lax.scan, the exact recurrence (0.56 MSPS/chip);
-    * ``scalar=True`` (planar only): the SAME exact recurrence on the TPU
-      scalar core (dsp.demod.make_costas_loop_scalar) — 15.5+ MSPS single
-      stream, trajectories within f32 rounding of the scan form;
+    * default: sequential lax.scan, the exact recurrence;
     * ``chunked=True`` (planar only): speculative chunk-parallel execution
       with seam certificates and exact branch correction
-      (dsp.demod.make_costas_loop_chunked) — hundreds of MSPS on a single
-      stream; publishes per-frame diagnostics on the "lock" message port;
+      (dsp.demod.make_costas_loop_chunked); publishes per-frame
+      diagnostics on the "lock" message port;
     * ``num_streams=N``: N independent loops vmapped (per-channel carrier
-      recovery), one port per stream — the natural TPU deployment shape
-      (1,591 MSPS aggregate at N=1024, BENCH_TPU.md).
+      recovery), one port per stream.
     """
 
     msg_ports = ("lock",)
@@ -67,29 +63,20 @@ class CostasLoop(Block):
     def __init__(self, loop_bw: float, order: int, planar: bool = False,
                  chunked: bool = False, chunk: int = 8192,
                  warmup: int = 1024, num_streams: int = 1,
-                 scalar: bool = False, name: str = "", **legacy):
+                 name: str = "", **legacy):
         strip_legacy_kwargs(legacy, self)
         self.name = name
         self.loop_bw = loop_bw
         self.order = order
         self.planar = planar
         self.chunked = chunked
-        self.scalar = scalar
         self.num_streams = num_streams
-        if chunked and scalar:
-            raise ValueError("chunked and scalar are exclusive execution "
-                             "shapes — pick one")
         if num_streams > 1:
             import jax
 
             self.n_inputs = self.n_outputs = num_streams
             if chunked:
                 raise ValueError("chunked and num_streams are exclusive")
-            if scalar:
-                raise ValueError(
-                    "scalar and num_streams are exclusive (the scalar-core "
-                    "kernel is single-stream; N parallel loops already "
-                    "saturate via the vmapped scan form)")
             base = (dsp_demod.make_costas_loop_planar(loop_bw, order)
                     if planar else dsp_demod.make_costas_loop(loop_bw, order))
             self._run = jax.vmap(base)
@@ -99,10 +86,6 @@ class CostasLoop(Block):
             self._run = dsp_demod.make_costas_loop_chunked(
                 loop_bw, order, chunk=chunk, warmup=warmup)
             self.quantum = chunk
-        elif scalar:
-            if not planar:
-                raise ValueError("scalar CostasLoop requires planar=True")
-            self._run = dsp_demod.make_costas_loop_scalar(loop_bw, order)
         elif planar:
             self._run = dsp_demod.make_costas_loop_planar(loop_bw, order)
         else:

@@ -2,7 +2,6 @@
 
 from __future__ import annotations
 
-import math
 from fractions import Fraction
 
 import jax.numpy as jnp
@@ -12,7 +11,7 @@ import numpy as np
 def _resize_tail(vec, new_len: int, keep_recent: bool):
     """Translate a carried 1-D tail/history to a new length.
 
-    keep_recent=True (input-domain state: TD history, OFS tail): keep the
+    keep_recent=True (input-domain state: the TD history): keep the
     most recent samples, left-pad zeros — exact continuity where the taps
     agree, a ≤(Δntaps)-sample transient otherwise.  keep_recent=False
     (output-domain state: the OFA tail t[j] = contribution to future output
@@ -45,18 +44,13 @@ class Filter(Block):
     default frequency-domain)."""
 
     def __init__(self, decimation: int, taps, use_time: bool = False,
-                 planar: bool = False, precision=None, name: str = "",
-                 **legacy):
+                 planar: bool = False, name: str = "", **legacy):
         strip_legacy_kwargs(legacy, self)
         self.name = name
         self.decimation = decimation
         self.rate = Fraction(1, decimation)
         self.use_time = use_time
         self.planar = planar
-        # precision="float32" forces exact multi-pass f32 dots on the
-        # MXU TD path (default: single bf16-operand pass, ~2.4e-3 rel —
-        # the reference's f32 accuracy needs the explicit opt-in)
-        self.precision = precision
         self._set(np.asarray(taps, np.float32))
 
     def _set(self, taps):
@@ -64,18 +58,6 @@ class Filter(Block):
         ntaps = int(np.shape(taps)[-1])
         if self.use_time:
             if self.planar:
-                from clenabled_tpu.runtime import device
-
-                if (device.is_tpu_backend()
-                        and not np.iscomplexobj(taps)):
-                    # TPU fast path: Pallas shifted-MAC FIR (~150× XLA conv);
-                    # needs frames in multiples of 128·tile_rows
-                    self._init, self._apply = dsp_fir.make_fir_filter_planar(
-                        taps, self.decimation, tile_rows=8,
-                        precision=getattr(self, "precision", None))
-                    self.quantum = math.lcm(1024, self.decimation)
-                    self._state_kind, self._state_len = "td", ntaps - 1
-                    return
                 self._init, self._apply = dsp_fir.make_fir_filter_planar_xla(
                     taps, self.decimation)
             else:
@@ -91,11 +73,8 @@ class Filter(Block):
                 self._init, self._apply, self._plan = dsp_ofa.make_fft_filter(
                     taps, self.decimation)
             self.quantum = dsp_ofa.frame_quantum(self._plan)
-            if hasattr(self._plan, "tail_len"):      # fused OFS Pallas plan
-                self._state_kind = "ofs"             # input-domain tail
-                self._state_len = self._plan.tail_len
-            else:                                    # OFA: output-domain tail
-                self._state_kind, self._state_len = "ofa", ntaps - 1
+            # overlap-add: the tail is output-domain state
+            self._state_kind, self._state_len = "ofa", ntaps - 1
 
     def taps(self):
         return self._taps
@@ -123,7 +102,7 @@ class Filter(Block):
             return old_state
         if old_kind != self._state_kind:   # plan family changed — no mapping
             return self.init_state()
-        keep_recent = self._state_kind in ("td", "ofs")
+        keep_recent = self._state_kind == "td"
         if isinstance(old_state, tuple):
             return tuple(_resize_tail(s, self._state_len, keep_recent)
                          for s in old_state)
@@ -171,11 +150,7 @@ class ComplexFilter(Filter):
                 self._init, self._apply, self._plan = dsp_ofa.make_fft_filter(
                     taps, self.decimation)
             self.quantum = dsp_ofa.frame_quantum(self._plan)
-            if hasattr(self._plan, "tail_len"):
-                self._state_kind = "ofs"
-                self._state_len = self._plan.tail_len
-            else:
-                self._state_kind, self._state_len = "ofa", ntaps - 1
+            self._state_kind, self._state_len = "ofa", ntaps - 1
 
     def set_taps(self, taps):
         """Rebuild for new COMPLEX taps (clComplexFilter set_taps2); use
@@ -302,7 +277,7 @@ class PolyphaseChannelizer(Block):
 
     def __init__(self, taps, buf_items: int, num_channels: int,
                  ninputs_per_iter: int, ch_map, planar: bool = False,
-                 fused: bool = False, name: str = "", **legacy):
+                 name: str = "", **legacy):
         strip_legacy_kwargs(legacy, self)
         if buf_items % num_channels:
             raise ValueError("buf_items must be a multiple of num_channels")
@@ -315,24 +290,8 @@ class PolyphaseChannelizer(Block):
         self.quantum = buf_items
         self.rate = Fraction(len(self.ch_map), ninputs_per_iter)
         self.planar = planar
-        if fused and ninputs_per_iter < num_channels:
-            # oversampled fused Pallas kernel (planar frames only):
-            # 4-30× the XLA phase-split path depending on prototype depth
-            # (BENCH_TPU.md); output stream equals the XLA one for an
-            # input delayed by os_tail_len(M, R, ntaps) − ntaps + 1
-            # samples (fixed pipeline latency, dsp.channelizer docstring)
-            if not planar:
-                raise ValueError("fused oversampled channelizer is planar-only")
-            if buf_items % 1024:
-                raise ValueError("fused path needs buf_items % 1024 == 0")
-            self._init, self._apply = \
-                dsp_chan.make_channelizer_fused_oversampled(
-                    taps, num_channels, ninputs_per_iter, self.ch_map)
-        else:
-            self._init, self._apply = dsp_chan.make_channelizer(
-                taps, num_channels, ninputs_per_iter, self.ch_map,
-                planar=planar
-            )
+        self._init, self._apply = dsp_chan.make_channelizer(
+            taps, num_channels, ninputs_per_iter, self.ch_map, planar=planar)
 
     def init_state(self):
         return self._init()

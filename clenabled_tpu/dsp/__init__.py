@@ -5,7 +5,7 @@ layer and its in-repo CPU reference DSP library (lib/{window,firdes,fft,
 fft_filter,fir_filter}.cc and the lib/cl*_impl.cc kernel builders) with
 jittable JAX functions over fixed-shape sample blocks.  Host-side tap/window
 design is NumPy (it runs once, at construction); everything in the streaming
-hot path is jax.numpy / lax / Pallas.
+hot path is jax.numpy / lax.
 """
 
 from clenabled_tpu.dsp import (  # noqa: F401

@@ -5,8 +5,8 @@
   with one sample of history carried between frames (set_history(2), :81).
 - ``costas_loop`` replaces clCostasLoop (lib/clCostasLoop_impl.cc:151-312).
   The reference runs the feedback loop as a SINGLE-work-item GPU kernel
-  (~0.7 MSPS, README.md:64) because it is inherently sequential.  On TPU the
-  honest form is a `lax.scan` carrying (phase, freq): same recurrence,
+  (~0.7 MSPS, README.md:64) because it is inherently sequential.  Here the
+  exact form is a `lax.scan` carrying (phase, freq): same recurrence,
   compiler-scheduled, and the carried state is an explicit NamedTuple instead
   of three single-element device buffers (:318-366).
 """
@@ -42,36 +42,15 @@ def quadrature_demod(x, gain: float, last_sample=None):
     return y, x[..., -1:]
 
 
-def quadrature_demod_planar(x, gain: float, last_sample=None,
-                            use_pallas: bool | None = None):
+def quadrature_demod_planar(x, gain: float, last_sample=None):
     """Planar quadrature demod: x is a planar.PC frame; identical math
-    (gain·atan2 of x[i]·conj(x[i-1])), complex-free for TPU.
-
-    Round-4 perf: the one-sample shift is computed on SLICED views with an
-    output-side concat instead of materializing shifted input copies —
-    measured 35 → 43 GSPS on TPU (BENCH_TPU.md; the input-side concat was
-    the elementwise table's only outlier).  On TPU backends, 1-D frames
-    whose length divides into 128·8-row tiles route to a fused Pallas
-    kernel (lane-roll shift + cross-tile scalar carry) that removes the
-    shift cost entirely; outputs within ~1e-5 rad of exact (polynomial atan2 — tests)."""
+    (gain·atan2 of x[i]·conj(x[i-1])).  The one-sample shift is computed
+    on sliced views with an output-side concat, so no shifted copy of the
+    input is materialized."""
     from clenabled_tpu.dsp import planar
 
     if last_sample is None:
         last_sample = planar.PC(x.re[..., :1], x.im[..., :1])
-    n = x.re.shape[-1]
-    if use_pallas is None:
-        from clenabled_tpu.runtime import device
-
-        use_pallas = (device.is_tpu_backend()
-                      and x.re.ndim == 1 and n % 1024 == 0)
-    if use_pallas:
-        from clenabled_tpu.dsp import pallas_kernels
-
-        y = pallas_kernels.qdemod_fused(
-            x.re, x.im, last_sample.re.reshape(()),
-            last_sample.im.reshape(()), gain,
-            interpret=jax.default_backend() == "cpu")
-        return y, planar.PC(x.re[..., -1:], x.im[..., -1:])
     xr, xi = x.re, x.im
     lr, li = last_sample.re, last_sample.im
     pr_b, pi_b = xr[..., :-1], xi[..., :-1]
@@ -111,7 +90,7 @@ def costas_gains(loop_bw: float) -> tuple[float, float]:
 def make_costas_loop_planar(loop_bw: float, order: int,
                             max_freq: float = 1.0, min_freq: float = -1.0):
     """Planar Costas loop: frames and outputs are planar.PC; the scan body
-    runs entirely in float32 (sin/cos NCO on real parts) — the TPU path."""
+    runs entirely in float32 (sin/cos NCO on real parts)."""
     from clenabled_tpu.dsp import planar
 
     if order not in (2, 4):
@@ -122,48 +101,13 @@ def make_costas_loop_planar(loop_bw: float, order: int,
 
     @jax.jit
     def run(state: CostasState, frame):
-        # unroll amortizes TPU per-step scan overhead (~2.5x throughput)
+        # unroll amortizes the per-iteration loop overhead
         (phase, freq, error), (o_r, o_i) = jax.lax.scan(
             step, (state.phase, state.freq, state.error),
             (frame.re, frame.im), unroll=16
         )
         return (CostasState(phase=phase, freq=freq, error=error),
                 planar.PC(o_r, o_i))
-
-    return run
-
-
-def make_costas_loop_scalar(loop_bw: float, order: int,
-                            max_freq: float = 1.0, min_freq: float = -1.0,
-                            chunk: int = 8192, interpret: bool | None = None):
-    """Exact-sequential Costas loop on the TPU SCALAR core (round 5).
-
-    Identical recurrence and carried state to make_costas_loop_planar,
-    but the per-sample feedback chain runs as true scalar code in SMEM
-    (pallas_kernels.costas_scalar) with ~1-ulp polynomial sincos instead
-    of paying VPU vector-issue latency per dependent op: measured
-    **15.5-15.7 MSPS single stream** on-chip vs 0.60 for the lax.scan
-    form and ~0.7 for the reference's single-work-item GPU kernel
-    (BENCH_TPU.md round 5; trajectories agree to float32 rounding —
-    max 1e-6 over 2^16 locked samples, end state bit-comparable).
-
-    Planar frames only.  Returns run(state, frame: planar.PC) ->
-    (state', planar.PC)."""
-    from clenabled_tpu.dsp import pallas_kernels, planar
-
-    if order not in (2, 4):
-        raise ValueError("costas loop order must be 2 or 4")
-    alpha, beta = costas_gains(loop_bw)
-
-    @jax.jit
-    def run(state: CostasState, frame):
-        interp = (jax.default_backend() == "cpu" if interpret is None
-                  else interpret)
-        o_r, o_i, ph, fr, er = pallas_kernels.costas_scalar(
-            frame.re, frame.im, state.phase, state.freq, state.error,
-            order, alpha, beta, min_freq, max_freq, chunk=chunk,
-            interpret=interp)
-        return CostasState(phase=ph, freq=fr, error=er), planar.PC(o_r, o_i)
 
     return run
 
@@ -206,12 +150,12 @@ def make_costas_loop_chunked(loop_bw: float, order: int,
 
     A single per-sample feedback chain is latency-bound on any hardware
     (the reference's single-work-item GPU kernel manages ~0.7 MSPS,
-    README.md:64; our scan 0.56).  But a locked 2nd-order loop is strongly
+    README.md:64).  But a locked 2nd-order loop is strongly
     CONTRACTING: trajectories from different initial states converge — in
     float32, to bitwise identity — within a few loop time constants.  So:
 
     * split the frame into ``chunk``-sample chunks processed in PARALLEL
-      (vmap — the TPU runs hundreds of loops for the price of one);
+      (vmap — many loops run for the price of one);
     * each chunk warm-starts ``warmup`` samples early from a guess
       (phase 0, the carried frequency estimate) and discards the warm-up
       outputs;
@@ -233,8 +177,8 @@ def make_costas_loop_chunked(loop_bw: float, order: int,
     within float dither of the sequential one; re-run the sequential form
     if bit-exactness is required.
 
-    ACQUISITION behavior (round-3 measurement, tests/test_costas_acquisition
-    + BENCH_TPU.md "Costas acquisition"): before lock the loop is NOT
+    ACQUISITION behavior (tests/test_costas_acquisition): before lock the
+    loop is NOT
     contracting, so chunks warm-started from the frequency prediction can
     diverge from the sequential trajectory — the certificate reports
     exactly this (``residual`` jumps orders of magnitude above the locked

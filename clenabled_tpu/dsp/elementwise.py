@@ -2,7 +2,7 @@
 
 Replaces the reference's generated one-work-item-per-sample OpenCL kernels
 (clMathOp, clMathConst, clComplexToMag/Arg/MagPhase, clMagPhaseToComplex,
-clLog, clSNR — lib/cl*_impl.cc) with jnp expressions XLA fuses on the VPU.
+clLog, clSNR — lib/cl*_impl.cc) with jnp expressions XLA fuses.
 Op codes match include/clenabled/clMathOpTypes.h:11-20.
 """
 
@@ -27,8 +27,7 @@ MATHOP_EMPTY_W_COPY = 254
 
 def _is_pc(x) -> bool:
     """Planar-complex (dsp.planar.PC) value?  Every elementwise op also
-    accepts planar pairs so the whole block layer runs complex-free on
-    TPU backends without complex64 support."""
+    accepts planar pairs so the whole block layer can run complex-free."""
     from clenabled_tpu.dsp import planar
 
     return isinstance(x, planar.PC)

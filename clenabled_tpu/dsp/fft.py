@@ -79,8 +79,8 @@ def _fft_real_forward(x, window):
 
 
 def fft_planar(x, direction: int = FORWARD, window=None, shift: bool = False):
-    """Planar-complex fft() with identical clFFT semantics (complex-free
-    TPU path; x is a planar.PC of [..., fft_size])."""
+    """Planar-complex fft() with identical clFFT semantics (x is a
+    planar.PC of [..., fft_size])."""
     from clenabled_tpu.dsp import planar
 
     n = x.re.shape[-1]
@@ -101,70 +101,14 @@ def fft_planar(x, direction: int = FORWARD, window=None, shift: bool = False):
     return planar.ifft_unscaled(x)
 
 
-def _fused_fft_supported(x, fft_size: int) -> bool:
-    """Shapes pallas_kernels.fft_batched_fused covers: 1-D planar
-    streams, fft_size = n2·128 with n2 a power of two ≥ 8 (runs in
-    interpret mode on CPU backends)."""
-    if x.re.ndim != 1:
-        return False
-    n2 = fft_size // 128
-    return fft_size % 128 == 0 and n2 >= 8 and (n2 & (n2 - 1)) == 0
-
-
 def fft_stream_planar(x, fft_size: int, direction: int = FORWARD,
-                      window=None, shift: bool = False,
-                      use_pallas: bool | str = "auto"):
+                      window=None, shift: bool = False):
     """Planar fft_stream: PC of 1-D streams chopped into fft_size
-    vectors.
-
-    use_pallas routes covered sizes (n2·128, n2 pow2 ≥ 8) through the
-    fused single-HBM-pass Pallas kernel (pallas_kernels.fft_batched_fused).
-    ``"auto"`` (default since round 5) uses the kernel on TPU backends
-    for supported sizes — the FINAL routing table (round-5 wrapper A/B,
-    job 361, interleaved per-round ratio medians over 7 rounds, plus the
-    round-4 dedicated 2048 A/B): 1024-pt 2.75×, 2048-pt 1.43× (r4
-    dedicated: 1.46×), 4096-pt 1.33× for the kernel; 512-pt is BELOW the
-    kernel's n2 ≥ 8 envelope and stays on XLA (its (128/n2)² reorder op
-    count is structural — sublane→lane movement has no wholesale Mosaic
-    primitive).  Note both paths run bf16-operand f32 dots by default on
-    TPU (round-3 audit), so routing does not change the accuracy
-    envelope.  Pass False to pin the XLA two-stage path."""
+    vectors."""
     from clenabled_tpu.dsp import planar
 
     if x.re.shape[-1] % fft_size:
         raise ValueError("stream length must be a multiple of fft_size")
-    if use_pallas == "auto":
-        from clenabled_tpu.runtime import device
-
-        use_pallas = (device.is_tpu_backend()
-                      and _fused_fft_supported(x, fft_size))
-    if use_pallas and not _fused_fft_supported(x, fft_size):
-        use_pallas = False
-    if use_pallas:
-        from clenabled_tpu.dsp import pallas_kernels
-        import jax
-
-        interpret = jax.default_backend() == "cpu"
-        n = x.re.shape[-1]
-        window = _check_window(window, fft_size)
-        xr, xi = x.re, x.im
-        if direction != FORWARD and shift:
-            # reverse shift swaps input halves at load (clFFT_impl.cc:549)
-            h = fft_size // 2
-            v = x.re.reshape(-1, fft_size)
-            w2 = x.im.reshape(-1, fft_size)
-            xr = jnp.concatenate([v[:, h:], v[:, :h]], -1).reshape(n)
-            xi = jnp.concatenate([w2[:, h:], w2[:, :h]], -1).reshape(n)
-        yr, yi = pallas_kernels.fft_batched_fused(
-            xr, xi, fft_size, inverse=direction != FORWARD,
-            window=window, interpret=interpret)
-        if direction == FORWARD and shift:
-            h = fft_size // 2
-            yr2 = yr.reshape(-1, fft_size)
-            yi2 = yi.reshape(-1, fft_size)
-            yr = jnp.concatenate([yr2[:, h:], yr2[:, :h]], -1).reshape(n)
-            yi = jnp.concatenate([yi2[:, h:], yi2[:, :h]], -1).reshape(n)
-        return planar.PC(yr, yi)
     shp = x.re.shape[:-1] + (-1, fft_size)
     out = fft_planar(planar.PC(x.re.reshape(shp), x.im.reshape(shp)),
                      direction=direction, window=window, shift=shift)

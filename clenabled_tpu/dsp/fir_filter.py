@@ -13,7 +13,7 @@ lib/clFilter_impl.cc:78), and
     out[m] = y[m * decimation]
 
 Complex data with real or complex taps decomposes into real 1-D convolutions
-so XLA lowers everything onto the MXU; there is no scalar tap loop anywhere.
+that XLA lowers to its convolution kernels; there is no scalar tap loop.
 """
 
 from __future__ import annotations
@@ -85,8 +85,7 @@ def fir_filter(x, taps, decimation: int = 1):
 
 def fir_filter_planar(x, taps, decimation: int = 1):
     """Planar fir_filter: x is a planar.PC with history at the front; taps
-    real or complex (numpy).  Portable XLA path (the Pallas kernel in
-    make_fir_filter_planar is the TPU fast path)."""
+    real or complex (numpy)."""
     import numpy as np
 
     from clenabled_tpu.dsp import planar
@@ -110,8 +109,8 @@ def fir_filter_planar(x, taps, decimation: int = 1):
 
 
 def make_fir_filter_planar_xla(taps, decimation: int = 1):
-    """Streaming planar FIR via XLA conv (portable; see
-    make_fir_filter_planar for the Pallas-kernel variant)."""
+    """Streaming planar FIR: (init_state, apply) with
+    apply((hist_r, hist_i), frame: planar.PC) -> (state, planar.PC)."""
     import numpy as np
 
     from clenabled_tpu.dsp import planar
@@ -131,61 +130,6 @@ def make_fir_filter_planar_xla(taps, decimation: int = 1):
         y = fir_filter_planar(planar.PC(fr, fi), taps_np, decimation)
         return (fr[fr.shape[-1] - (ntaps - 1):],
                 fi[fi.shape[-1] - (ntaps - 1):]), y
-
-    return init_state, apply
-
-
-def make_fir_filter_planar(taps, decimation: int = 1, tile_rows: int = 256,
-                           interpret: bool = False, use_mxu: bool = True,
-                           precision=None):
-    """Planar/TPU streaming direct FIR using the single-pass Pallas
-    kernels: the banded-matmul MXU form by default (round 4,
-    pallas_kernels.fir_direct_mxu — the VPU shifted-MAC chain was the
-    floor at deep tap counts), fir_direct (VPU) with ``use_mxu=False``.
-
-    The MXU default runs f32 dots as a single bf16-operand pass
-    (~2.4e-3 rel measured on-chip vs the VPU kernel's exact-f32 MACs);
-    pass ``precision="float32"`` for exact multi-pass f32 sums on the MXU
-    path (forwarded to fir_direct_mxu; ignored by the VPU kernel, whose
-    MACs are already exact).
-
-    Real taps only (complex taps: two planar FIRs or the OFA path).
-    apply((hist_r, hist_i), frame: planar.PC) -> (state, planar.PC); frame
-    length must be a multiple of 128·tile_rows and of ``decimation``.
-    """
-    from clenabled_tpu.dsp import pallas_kernels, planar
-
-    taps_np = jnp.asarray(taps, jnp.float32)
-    ntaps = int(taps_np.shape[-1])
-
-    def init_state(frame_size: int | None = None):
-        del frame_size
-        z = jnp.zeros((ntaps - 1,), jnp.float32)
-        return (z, jnp.zeros_like(z))
-
-    if use_mxu:
-        def kern(x, t, tile_rows, interpret):
-            return pallas_kernels.fir_direct_mxu(
-                x, t, tile_rows=tile_rows, interpret=interpret,
-                precision=precision)
-    else:
-        kern = pallas_kernels.fir_direct
-
-    @jax.jit
-    def apply(state, frame):
-        xr, xi = frame.re, frame.im
-        hr, hi = state
-        fr = jnp.concatenate([hr, xr])
-        fi = jnp.concatenate([hi, xi])
-        yr = kern(fr, taps_np, tile_rows=tile_rows,
-                  interpret=interpret)
-        yi = kern(fi, taps_np, tile_rows=tile_rows,
-                  interpret=interpret)
-        if decimation > 1:
-            yr, yi = yr[::decimation], yi[::decimation]
-        new_hr = fr[fr.shape[-1] - (ntaps - 1):]
-        new_hi = fi[fi.shape[-1] - (ntaps - 1):]
-        return (new_hr, new_hi), planar.PC(yr, yi)
 
     return init_state, apply
 

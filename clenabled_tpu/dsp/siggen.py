@@ -3,7 +3,7 @@
 Replaces clSignalSource (lib/clSignalSource_impl.cc).  The reference kernel
 computes ``phase + inc*index`` per work item (fp64 on capable devices,
 :113-237) while the host advances and wraps the phase once per buffer
-(step(), :280-303).  TPUs have no fast fp64, so precision comes from a
+(step(), :280-303).  fp64 is slow on the device, so precision comes from a
 different trick: the per-index phase ramp ``(inc*index) mod 2π`` is
 precomputed once on the host in float64 and baked as a float32 constant, so
 in-frame error stays at float32 epsilon instead of growing with index.
@@ -40,8 +40,7 @@ def make_signal_source(sampling_freq: float, waveform: int, frequency: float,
 
     generate(state) -> (state', frame) where frame is [frame_size] of
     ``dtype`` (complex64 → cos + j·sin; float32/int32 → selected waveform).
-    With ``planar=True`` the complex frame is a planar.PC(cos, sin) pair —
-    the complex-free TPU form.
+    With ``planar=True`` the complex frame is a planar.PC(cos, sin) pair.
     """
     angle_rate = TWO_PI * frequency / sampling_freq
     # per-index ramp, wrapped in fp64 host-side, then cast

@@ -1,7 +1,7 @@
 """Native C++ runtime components (ctypes bindings).
 
-The reference's entire runtime is C++; the pieces that remain host-side in
-a TPU design — high-rate ingest, unpack/marshal, disk output — are native
+The reference's entire runtime is C++; the pieces that remain host-side
+here — high-rate ingest, unpack/marshal, disk output — are native
 here too:
 
 - :class:`RingBuffer` — SPSC lock-free sample ring (capture thread ↔ JAX
@@ -13,38 +13,56 @@ here too:
 - :class:`RollingFileWriter` — async rolling output files with JSON
   sidecars (lib/clXEngine_impl.cc:438-465).
 
-The shared library is compiled on demand with g++ -O3 (no pip deps); if no
-compiler is available the pure-NumPy fallbacks in ``fallback`` keep the API
-working.
+The shared library is compiled from ``src/*.cc`` with g++ -O3 at first use
+into ``_build/`` (no pip deps); if no compiler is available the pure-NumPy
+fallbacks keep the unpack/marshal API working.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
-import sysconfig
 import threading
 
 import numpy as np
 
 _SRC_DIR = os.path.join(os.path.dirname(__file__), "src")
-_LIB_PATH = os.path.join(os.path.dirname(__file__), "_clenabled_native.so")
+# build outputs live here (listed in .gitignore); nothing built is committed
+BUILD_DIR = os.path.join(os.path.dirname(__file__), "_build")
+_SOURCES = ("ringbuffer.cc", "unpack.cc", "filewriter.cc")
+_CXXFLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 _lock = threading.Lock()
 _lib = None
 _build_error: str | None = None
 
 
-def _build() -> str | None:
-    srcs = [os.path.join(_SRC_DIR, f)
-            for f in ("ringbuffer.cc", "unpack.cc", "filewriter.cc")]
-    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-           "-o", _LIB_PATH] + srcs + ["-lpthread"]
+def lib_path() -> str:
+    """Where the library for the current sources lives.  The name carries
+    a hash of the sources' contents and the compiler flags, so a changed
+    source builds a new library and a stale one is never loaded."""
+    h = hashlib.sha256(" ".join(_CXXFLAGS).encode())
+    for f in _SOURCES:
+        with open(os.path.join(_SRC_DIR, f), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR,
+                        f"_clenabled_native-{h.hexdigest()[:16]}.so")
+
+
+def _build(path: str) -> str | None:
+    srcs = [os.path.join(_SRC_DIR, f) for f in _SOURCES]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    # build under a private name, then rename: concurrent builders (test
+    # workers) each produce a whole file and the last rename wins
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = ["g++", *_CXXFLAGS, "-o", tmp, *srcs, "-lpthread"]
     try:
         subprocess.run(cmd, check=True, capture_output=True, text=True)
-        return None
     except (subprocess.CalledProcessError, FileNotFoundError) as e:
-        return getattr(e, "stderr", str(e)) or str(e)
+        return getattr(e, "stderr", None) or str(e)
+    os.replace(tmp, path)
+    return None
 
 
 def get_lib():
@@ -53,14 +71,12 @@ def get_lib():
     with _lock:
         if _lib is not None or _build_error is not None:
             return _lib
-        if not os.path.exists(_LIB_PATH) or any(
-            os.path.getmtime(os.path.join(_SRC_DIR, f)) > os.path.getmtime(_LIB_PATH)
-            for f in os.listdir(_SRC_DIR)
-        ):
-            _build_error = _build()
+        path = lib_path()
+        if not os.path.exists(path):
+            _build_error = _build(path)
             if _build_error is not None:
                 return None
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(path)
         lib.rb_create.restype = ctypes.c_void_p
         lib.rb_create.argtypes = [ctypes.c_size_t]
         lib.rb_destroy.argtypes = [ctypes.c_void_p]

@@ -3,7 +3,7 @@
 // The reference unpacks packed-4-bit / signed-byte I/Q on the GPU
 // (CharToComplex, /root/reference/lib/clXEngine_impl.cc:831-858) and
 // marshals antenna streams into [time][station][chan][pol] on the host in
-// C++ (:982-1061).  Feeding a TPU, the unpack targets PLANAR float pairs
+// C++ (:982-1061).  Here the unpack targets PLANAR float pairs
 // (the device-side format — see clenabled_tpu/dsp/planar.py) and runs on
 // the host ingest path where the bytes arrive.  Plain loops; g++ -O3
 // autovectorizes them.

@@ -1,10 +1,10 @@
 """Flagship pipelines — the benchmark configurations from BASELINE.json.
 
 The headline: a 4-antenna frequency-domain cross-correlator + polyphase
-channelizer pipeline (north star ≥100 MSPS/chip), plus its fully sharded
-multi-chip variant (time-sharded channelizer halos + station→channel
-all_to_all X-Engine) used by __graft_entry__.dryrun_multichip and the
-scaling benchmarks.
+channelizer pipeline (north star ≥100 MSPS per device), plus its
+time-sharded multi-device variant (ring-ppermute channelizer halos + psum
+integration) used by __graft_entry__.dryrun_multichip and the scaling
+benchmarks.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from clenabled_tpu.dsp import channelizer as dsp_chan
 from clenabled_tpu.dsp import firdes
+from clenabled_tpu.dsp import planar
 from clenabled_tpu.dsp import xcorr as dsp_xcorr
 from clenabled_tpu.dsp import xengine as dsp_xengine
 
@@ -30,13 +31,28 @@ class FxPipelineConfig(NamedTuple):
     max_shift: int = 512              # (reserved for TD followups)
 
 
+def flagship_taps(num_channels: int, samp_rate: float = 100e6,
+                  proto_taps=None) -> np.ndarray:
+    """The channelizer prototype, zero-padded to a multiple of
+    ``num_channels``: ``proto_taps`` if given, else the default sharp
+    low-pass (400 taps at 16 channels)."""
+    m = num_channels
+    if proto_taps is None:
+        proto = firdes.low_pass(1.0, samp_rate, samp_rate / (2 * m) * 0.8,
+                                samp_rate / (2 * m) * 0.2)
+    else:
+        proto = np.asarray(proto_taps, np.float32)
+    return np.concatenate([proto, np.zeros((-len(proto)) % m, np.float32)])
+
+
 def make_fx_pipeline(cfg: FxPipelineConfig = FxPipelineConfig(),
                      samp_rate: float = 100e6):
-    """Single-chip flagship: per antenna a 16-channel PFB channelizer, then
-    a frequency-domain cross-correlation of every antenna against antenna 0
-    (clxcorrelate_fft_vcf role) and an X-Engine integration over the same
-    spectra (clXEngine role) — the 'interferometry receive chain' of the
-    reference's example flowgraphs, end to end in ONE jitted program.
+    """Single-device flagship: per antenna a 16-channel PFB channelizer,
+    then a frequency-domain cross-correlation of every antenna against
+    antenna 0 (clxcorrelate_fft_vcf role) and an X-Engine integration over
+    the same spectra (clXEngine role) — the 'interferometry receive chain'
+    of the reference's example flowgraphs, end to end in ONE jitted
+    program.
 
     Returns (fn, example_args): fn(x, hist) with x [A, N] complex64 and
     hist [A, T-1] channelizer history → (fd_corr [A-1, F], xmatrix
@@ -44,11 +60,8 @@ def make_fx_pipeline(cfg: FxPipelineConfig = FxPipelineConfig(),
     """
     a = cfg.num_antennas
     m = cfg.num_channels
-    proto = firdes.low_pass(1.0, samp_rate, samp_rate / (2 * m) * 0.8,
-                            samp_rate / (2 * m) * 0.2)
-    proto = np.concatenate(
-        [proto, np.zeros((-len(proto)) % m, np.float32)])
-    taps_rm, ntaps = dsp_chan._pfb_constants(proto, m, m)
+    taps_rm, ntaps = dsp_chan._pfb_constants(flagship_taps(m, samp_rate),
+                                             m, m)
     n = cfg.samples_per_step
 
     @jax.jit
@@ -73,300 +86,115 @@ def make_fx_pipeline(cfg: FxPipelineConfig = FxPipelineConfig(),
     return fn, (x, hist)
 
 
+def _fx_planar_core(full_re, full_im, taps_rm, m: int, ntaps: int,
+                    nout: int):
+    """Channelize planar streams [A, T-1+nout·M] and correlate them.
+
+    Returns (corr_sum [A-1, M], xmat planar.PC [F, nb, 1]): the FD
+    correlation magnitudes of every antenna against antenna 0 SUMMED over
+    the nout frames (not yet averaged or fftshifted, so time shards can
+    psum them) and the X-Engine Gram over the same spectra."""
+    a = full_re.shape[0]
+    # one packed PFB over all antennas × (re, im) at once
+    comps = jnp.concatenate([full_re, full_im], axis=0)         # [2A, L]
+    acc = dsp_chan._branch_sums_critical_batched(
+        comps, taps_rm, m, ntaps, nout)                          # [2A, N/M, M]
+    z2 = planar.ifft_unscaled(planar.PC(acc[:a], acc[a:]))
+    # spectra in [time, antenna, channel] — the layout both consumers take
+    spec = planar.PC(jnp.transpose(z2.re, (1, 0, 2)),
+                     jnp.transpose(z2.im, (1, 0, 2)))
+    ref = planar.PC(spec.re[:, :1, :], spec.im[:, :1, :])
+    sig = planar.PC(spec.re[:, 1:, :], spec.im[:, 1:, :])
+    prod = planar.mul_conj(ref, sig)                             # [T, A-1, M]
+    corr_sum = planar.pabs(planar.ifft_unscaled(prod)).sum(axis=0)
+    xz = planar.PC(spec.re[..., None], spec.im[..., None])
+    return corr_sum, dsp_xengine.xengine_correlate_planar(xz, npol=1)
+
+
 def make_fx_pipeline_planar(cfg: FxPipelineConfig = FxPipelineConfig(),
-                            samp_rate: float = 100e6,
-                            use_pallas: bool | None = None,
-                            proto_taps=None):
-    """Planar-complex flagship (the TPU execution path — no complex64
-    anywhere; see dsp.planar).  fn(xr, xi, hr, hi) → (fd_avg,
-    xmat_re, xmat_im, new_hr, new_hi), all float32.
+                            samp_rate: float = 100e6, proto_taps=None,
+                            in_dtype=jnp.float32):
+    """Planar-complex flagship (no complex64 anywhere; see dsp.planar).
 
-    use_pallas: run the channelizer front-end as the fused single-pass
-    Pallas kernel (dsp.pallas_kernels).  Default: on for TPU platforms,
-    off for CPU.  proto_taps: override the channelizer prototype (as in
-    make_fx_pipeline_fused — any depth)."""
-    from clenabled_tpu.dsp import planar
-
+    fn(xr, xi, hr, hi) → (fd_avg, xmat_re, xmat_im, new_hr, new_hi).
+    xr/xi [A, N] are ``in_dtype``: float32, or the narrow ingest types
+    bfloat16 and int8 (the reference's IChar samples, used raw,
+    lib/clXEngine_impl.cc:831-858), which are widened to float32 on the
+    device before the PFB.  hr/hi [A, T-1] and every output are float32.
+    proto_taps overrides the channelizer prototype (any depth)."""
     a = cfg.num_antennas
     m = cfg.num_channels
-    if proto_taps is not None:
-        proto = np.asarray(proto_taps, np.float32)
-    else:
-        proto = firdes.low_pass(1.0, samp_rate, samp_rate / (2 * m) * 0.8,
-                                samp_rate / (2 * m) * 0.2)
-    proto = np.concatenate(
-        [proto, np.zeros((-len(proto)) % m, np.float32)])
-    taps_rm, ntaps = dsp_chan._pfb_constants(proto, m, m)
+    taps_rm, ntaps = dsp_chan._pfb_constants(
+        flagship_taps(m, samp_rate, proto_taps), m, m)
     n = cfg.samples_per_step
-    ch_all = jnp.arange(m, dtype=jnp.int32)
-
-    taps_rm_j = jnp.asarray(taps_rm)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() != "cpu"
     nout = n // m
-    tile = 512
-    while use_pallas and nout % tile:
-        tile //= 2
 
     @jax.jit
     def fn(xr, xi, hr, hi):
-        full = planar.PC(jnp.concatenate([hr, xr], axis=-1),
-                         jnp.concatenate([hi, xi], axis=-1))  # [A, T-1+N]
-        # lane-packed PFB over all antennas × (re, im) at once
-        comps = jnp.concatenate([full.re, full.im], axis=0)   # [2A, L]
-        if use_pallas:
-            from clenabled_tpu.dsp import pallas_kernels
-            y, hrt = dsp_chan._pack_streams(comps, taps_rm_j, m, ntaps, nout)
-            z = pallas_kernels.pfb_channelize_packed(y, hrt, a, m, tile=tile)
-            zs = z.reshape(nout, 2 * a, m)                    # view, no copy
-            # spectra in [time, antenna, channel] — the natural layout for
-            # BOTH consumers below; no transposes anywhere downstream
-            spec = planar.PC(zs[:, :a, :], zs[:, a:, :])
-        else:
-            acc = dsp_chan._branch_sums_critical_batched(
-                comps, taps_rm_j, m, ntaps, nout)             # [2A, N/M, M]
-            z2 = planar.ifft_unscaled(planar.PC(acc[:a], acc[a:]))
-            spec = planar.PC(jnp.transpose(z2.re, (1, 0, 2)),
-                             jnp.transpose(z2.im, (1, 0, 2)))
-        new_hr = full.re[:, full.re.shape[-1] - (ntaps - 1):]
-        new_hi = full.im[:, full.im.shape[-1] - (ntaps - 1):]
-        # FD xcorr of each antenna vs antenna 0, averaged over time frames,
-        # directly on [T, A, M] (ref broadcasts over the pair axis)
-        ref = planar.PC(spec.re[:, :1, :], spec.im[:, :1, :])
-        sig = planar.PC(spec.re[:, 1:, :], spec.im[:, 1:, :])
-        prod = planar.mul_conj(ref, sig)                      # [T, A-1, M]
-        corr = planar.pabs(planar.ifft_unscaled(prod)).mean(axis=0)
-        fd = jnp.roll(corr, m // 2, axis=-1)                  # [A-1, M]
-        # X-Engine: spectra already [T, S, F]; pol axis is a view
-        xz = planar.PC(spec.re[..., None], spec.im[..., None])
-        xmat = dsp_xengine.xengine_correlate_planar(xz, npol=1)
-        return fd, xmat.re, xmat.im, new_hr, new_hi
+        full_re = jnp.concatenate([hr, xr.astype(jnp.float32)], axis=-1)
+        full_im = jnp.concatenate([hi, xi.astype(jnp.float32)], axis=-1)
+        corr_sum, xmat = _fx_planar_core(full_re, full_im, taps_rm, m,
+                                         ntaps, nout)
+        fd = jnp.roll(corr_sum / nout, m // 2, axis=-1)          # [A-1, M]
+        k = full_re.shape[-1] - (ntaps - 1)
+        return fd, xmat.re, xmat.im, full_re[:, k:], full_im[:, k:]
 
-    x = jnp.zeros((a, n), jnp.float32)
+    x = jnp.zeros((a, n), in_dtype)
     hist = jnp.zeros((a, ntaps - 1), jnp.float32)
     return fn, (x, x, hist, hist)
 
 
-def make_fx_pipeline_fused(cfg: FxPipelineConfig = FxPipelineConfig(),
-                           samp_rate: float = 100e6,
-                           in_dtype=jnp.float32, mxu_dtype=None,
-                           branch_mxu=None, interpret: bool | None = None,
-                           proto_taps=None, fd_pairs=None, xe_pairs=None,
-                           precision=None, deep_strategy: str = "window"):
-    """Maximally fused flagship: ONE flat-layout Pallas kernel does PFB →
-    DFT → FD-xcorr accumulation → X-Engine Gram accumulation without ever
-    materializing spectra in HBM (pallas_kernels.fx_correlate_streams_v2);
-    the kernel reads xr/xi straight from HBM (no host-side concat at all)
-    with double-buffered tile DMA, so each input sample crosses HBM exactly
-    once.  Outputs equal make_fx_pipeline_planar's on a stream delayed by
-    fx_tail_len(in_dtype) − (ntaps−1) samples (fixed pipeline latency; see
-    fx_correlate_streams_v2).  in_dtype may be float32, bfloat16, or int8
-    (the reference's IChar ingest, lib/clXEngine_impl.cc:831-858) — narrow
-    ingest halves/quarters the HBM traffic.
-
-    proto_taps: override the channelizer prototype filter (default: the
-    sharp low-pass design, 400 taps at m=16).  The step is MXU-dot-bound
-    and the polyphase branch stage scales with ⌈ntaps/128⌉ banded matmuls
-    per component, so a lighter prototype trades stop-band attenuation for
-    throughput (see BENCH_TPU.md).  TPU-only (interpret mode covers
-    testing).
-
-    fd_pairs / xe_pairs: restrict which antenna pairs the FD correlator /
-    X-Engine accumulate (defaults: every antenna vs antenna 0; the full
-    auto-inclusive baseline set).  The per-tile epilogue scales with the
-    pair count — trimming 10 XE + 3 FD pairs to 2 + 1 measures ~18% off
-    the 4-antenna step (BENCH_TPU.md round-3 probes) — so deployments that
-    only need a subset of baselines should pass it here rather than
-    discarding outputs.  With custom pairs the output shapes follow the
-    pair lists: fd is [len(fd_pairs), M] and the X-Engine planes are
-    [F, len(xe_pairs), 1], rows ordered exactly as the given tuples."""
-    from clenabled_tpu.dsp import pallas_kernels
-
-    a = cfg.num_antennas
-    m = cfg.num_channels
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    if proto_taps is None:
-        proto = firdes.low_pass(1.0, samp_rate, samp_rate / (2 * m) * 0.8,
-                                samp_rate / (2 * m) * 0.2)
-    else:
-        proto = np.asarray(proto_taps, np.float32)
-    proto = np.concatenate(
-        [proto, np.zeros((-len(proto)) % m, np.float32)])
-    taps_rm, ntaps = dsp_chan._pfb_constants(proto, m, m)
-    n = cfg.samples_per_step
-    nout = n // m
-    # carried tail per stream — grows with the prototype (round 4: deep
-    # prototypes fused end-to-end, fx_tail_len(dtype, m, ntaps))
-    big_h = pallas_kernels.fx_tail_len(in_dtype, m, ntaps)
-    tile_rows = 256
-    halo_rows = big_h // 128
-    while tile_rows < halo_rows:
-        tile_rows *= 2                # deep proto: tile must cover the halo
-    while (n // 128) % tile_rows:
-        tile_rows //= 2
-    if tile_rows < halo_rows:
-        raise ValueError(
-            f"samples_per_step too small for the {halo_rows}-row halo "
-            f"(needs n/128 divisible by a tile >= {halo_rows})")
-
-    @jax.jit
-    def fn(xr, xi, tr, ti):
-        fd_sum, gram = pallas_kernels.fx_correlate_streams_v2(
-            xr, xi, tr, ti, taps_rm, a, m, tile_rows=tile_rows,
-            mxu_dtype=mxu_dtype, branch_mxu=branch_mxu,
-            fd_pairs=fd_pairs, xe_pairs=xe_pairs, precision=precision,
-            interpret=interpret, deep_strategy=deep_strategy)
-        # fd: [len(fd_pairs), M] (default fd_pairs → [A-1, M]); xre/xim:
-        # [F, len(xe_pairs), 1] (default xe_pairs → the nb = A(A+1)/2
-        # triangular baselines) — row order follows the pair tuples
-        fd = jnp.roll(fd_sum / nout, m // 2, axis=-1)
-        xre = gram[:, :m].T[:, :, None]
-        xim = gram[:, m:].T[:, :, None]
-        new_tr = xr[:, n - big_h:]
-        new_ti = xi[:, n - big_h:]
-        return fd, xre, xim, new_tr, new_ti
-
-    x = jnp.zeros((a, n), in_dtype)
-    tail = jnp.zeros((a, big_h), in_dtype)
-    return fn, (x, x, tail, tail)
-
-
 def make_sharded_fx_pipeline(mesh: Mesh, axis: str = "shard",
                              cfg: FxPipelineConfig = FxPipelineConfig(),
-                             samp_rate: float = 100e6):
-    """Multi-chip flagship step over a mesh: the antenna streams are
-    TIME-sharded (each chip channelizes a time slice — halo via ring
-    ppermute), then the X-Engine re-shards spectra time→channel... in this
-    topology each chip already holds all antennas for its time slice, so the
-    Gram integration is computed per time-shard and psum-reduced across the
-    mesh (integration is a sum over time).  Collectives: 1 ppermute (halo)
-    + 1 psum (integration) per step, all ICI.
+                             samp_rate: float = 100e6, in_dtype=jnp.float32):
+    """Multi-device planar flagship step over a mesh: the antenna streams
+    are TIME-sharded (each device channelizes its time slice; the
+    channelizer halo arrives from the left neighbour by ring ppermute) and
+    the FD-correlation sums and X-Engine Gram are psum-reduced across the
+    mesh (integration is a sum over time).  Collectives per step: 2
+    ppermutes (re/im halo) + psums.
 
-    Returns (fn, example_args) with fn jitted over the mesh; x [A, D·L].
+    cfg.samples_per_step is the per-device block.  fn(xr, xi, hr, hi) with
+    xr/xi [A, D·L] time-sharded (``in_dtype`` as in make_fx_pipeline_planar)
+    and hr/hi [A, T-1] float32 replicated → the outputs of
+    make_fx_pipeline_planar on the whole D·L-sample step.
     """
     a = cfg.num_antennas
     m = cfg.num_channels
     d = mesh.shape[axis]
-    proto = firdes.low_pass(1.0, samp_rate, samp_rate / (2 * m) * 0.8,
-                            samp_rate / (2 * m) * 0.2)
-    proto = np.concatenate(
-        [proto, np.zeros((-len(proto)) % m, np.float32)])
-    taps_rm, ntaps = dsp_chan._pfb_constants(proto, m, m)
-    if cfg.samples_per_step < ntaps - 1:
+    taps_rm, ntaps = dsp_chan._pfb_constants(flagship_taps(m, samp_rate),
+                                             m, m)
+    n_local = cfg.samples_per_step
+    if n_local < ntaps - 1:
         raise ValueError(
-            f"per-shard block ({cfg.samples_per_step}) must be >= the "
-            f"channelizer halo ({ntaps - 1} samples)"
-        )
-    n = cfg.samples_per_step * d
+            f"per-shard block ({n_local}) must be >= the "
+            f"channelizer halo ({ntaps - 1} samples)")
+    nout_local = n_local // m
     perm = [(j, (j + 1) % d) for j in range(d)]
 
     @jax.jit
     @partial(jax.shard_map, mesh=mesh,
-             in_specs=(P(None, axis), P(None, None)),
-             out_specs=(P(), P(), P(None, None)))
-    def fn(x, hist):  # local x [A, L], hist [A, T-1] replicated
+             in_specs=(P(None, axis), P(None, axis), P(), P()),
+             out_specs=(P(), P(), P(), P(), P()))
+    def fn(xr, xi, hr, hi):  # local xr/xi [A, L], hr/hi [A, T-1]
         idx = jax.lax.axis_index(axis)
-        recv = jax.lax.ppermute(x[:, -(ntaps - 1):], axis, perm)
-        halo = jnp.where(idx == 0, hist, recv)
-        full = jnp.concatenate([halo, x], axis=-1)
-        spectra = jax.vmap(
-            lambda xa: dsp_chan._channelize(
-                xa, taps_rm, jnp.arange(m, dtype=jnp.int32),
-                num_channels=m, ninputs_per_iter=m, ntaps=ntaps)
-        )(full)                                      # [A, L/M, M]
-        fd = dsp_xcorr.fd_xcorr(spectra).mean(axis=1)
-        fd = jax.lax.pmean(fd, axis)                 # average over time shards
-        z = jnp.transpose(spectra, (1, 0, 2))[..., None]
-        xmat = dsp_xengine.xengine_correlate(z, npol=1)
-        xmat = jax.lax.psum(xmat, axis)              # integrate across shards
-        new_hist = jnp.where(idx == 0, recv, hist)   # frame-end tail for next
-        new_hist = jax.lax.psum(
-            jnp.where(idx == 0, new_hist, jnp.zeros_like(new_hist)), axis)
-        return fd, xmat, new_hist
+        xr = xr.astype(jnp.float32)
+        xi = xi.astype(jnp.float32)
+        recv_r = jax.lax.ppermute(xr[:, n_local - (ntaps - 1):], axis, perm)
+        recv_i = jax.lax.ppermute(xi[:, n_local - (ntaps - 1):], axis, perm)
+        full_re = jnp.concatenate([jnp.where(idx == 0, hr, recv_r), xr], -1)
+        full_im = jnp.concatenate([jnp.where(idx == 0, hi, recv_i), xi], -1)
+        corr_sum, xmat = _fx_planar_core(full_re, full_im, taps_rm, m,
+                                         ntaps, nout_local)
+        corr_sum = jax.lax.psum(corr_sum, axis)
+        fd = jnp.roll(corr_sum / (nout_local * d), m // 2, axis=-1)
+        xre = jax.lax.psum(xmat.re, axis)
+        xim = jax.lax.psum(xmat.im, axis)
+        # shard 0 received the LAST shard's tail: the next step's history
+        new_hr = jax.lax.psum(jnp.where(idx == 0, recv_r, 0.0), axis)
+        new_hi = jax.lax.psum(jnp.where(idx == 0, recv_i, 0.0), axis)
+        return fd, xre, xim, new_hr, new_hi
 
-    x = jnp.zeros((a, n), jnp.complex64)
-    hist = jnp.zeros((a, ntaps - 1), jnp.complex64)
-    return fn, (x, hist)
-
-
-def make_sharded_fx_pipeline_fused(mesh: Mesh, axis: str = "shard",
-                                   cfg: FxPipelineConfig = FxPipelineConfig(),
-                                   samp_rate: float = 100e6,
-                                   in_dtype=jnp.float32,
-                                   interpret: bool | None = None):
-    """Multi-chip flagship running the FULL-SPEED fused Pallas kernel
-    (fx_correlate_streams_v2) per time shard.
-
-    Each chip channelizes + correlates its time slice of the antenna
-    streams; the carried tail rides a ring ppermute (chip d's tail = chip
-    d−1's last fx_tail_len samples — one ICI hop), and the FD/X-Engine
-    accumulators psum across the mesh (integration is a sum over time).
-    Collectives per step: 2 ppermute (re/im tails) + psums, all ICI.
-
-    interpret: run the Pallas kernel in interpreter mode (default: on for
-    CPU backends, so the 8-device CPU mesh validates the real multi-chip
-    production path hardware-free).
-
-    Returns (fn, example_args): fn(xr, xi, tr, ti) with xr/xi [A, D·L]
-    time-sharded and tr/ti [A, tail_len] (the global stream tail,
-    replicated) → (fd [A-1, M], xre, xim [F, nb, 1], new_tr, new_ti).
-    """
-    from clenabled_tpu.dsp import pallas_kernels
-
-    a = cfg.num_antennas
-    m = cfg.num_channels
-    d = mesh.shape[axis]
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    proto = firdes.low_pass(1.0, samp_rate, samp_rate / (2 * m) * 0.8,
-                            samp_rate / (2 * m) * 0.2)
-    proto = np.concatenate(
-        [proto, np.zeros((-len(proto)) % m, np.float32)])
-    taps_rm, ntaps = dsp_chan._pfb_constants(proto, m, m)
-    n_local = cfg.samples_per_step          # per-shard samples per step
-    tail_len = pallas_kernels.fx_tail_len(in_dtype)
-    if n_local < tail_len:
-        raise ValueError("per-shard block must be >= the carried tail")
-    tile_rows = 256
-    while (n_local // 128) % tile_rows:
-        tile_rows //= 2
-    if tile_rows < tail_len // 128:
-        raise ValueError("samples_per_step too small for the ingest dtype")
-    nout_total = (n_local * d) // m
-    n = n_local * d
-    perm = [(j, (j + 1) % d) for j in range(d)]
-
-    @jax.jit
-    @partial(jax.shard_map, mesh=mesh,
-             in_specs=(P(None, axis), P(None, axis), P(None, None),
-                       P(None, None)),
-             out_specs=(P(), P(), P(), P(None, None), P(None, None)),
-             check_vma=False)  # pallas_call outputs carry no vma info
-    def fn(xr, xi, tr, ti):
-        idx = jax.lax.axis_index(axis)
-        # ring halo: this shard's tail = left neighbor's last samples
-        recv_r = jax.lax.ppermute(xr[:, n_local - tail_len:], axis, perm)
-        recv_i = jax.lax.ppermute(xi[:, n_local - tail_len:], axis, perm)
-        my_tr = jnp.where(idx == 0, tr, recv_r)
-        my_ti = jnp.where(idx == 0, ti, recv_i)
-        fd_sum, gram = pallas_kernels.fx_correlate_streams_v2(
-            xr, xi, my_tr, my_ti, taps_rm, a, m, tile_rows=tile_rows,
-            interpret=interpret)
-        fd_sum = jax.lax.psum(fd_sum, axis)
-        gram = jax.lax.psum(gram, axis)
-        fd = jnp.roll(fd_sum / nout_total, m // 2, axis=-1)
-        xre = gram[:, :m].T[:, :, None]
-        xim = gram[:, m:].T[:, :, None]
-        # next step's global tail = the LAST shard's frame tail
-        new_tr = jax.lax.psum(
-            jnp.where(idx == d - 1, xr[:, n_local - tail_len:],
-                      jnp.zeros_like(my_tr)), axis)
-        new_ti = jax.lax.psum(
-            jnp.where(idx == d - 1, xi[:, n_local - tail_len:],
-                      jnp.zeros_like(my_ti)), axis)
-        return fd, xre, xim, new_tr, new_ti
-
-    x = jnp.zeros((a, n), in_dtype)
-    tail = jnp.zeros((a, tail_len), in_dtype)
-    return fn, (x, x, tail, tail)
+    x = jnp.zeros((a, n_local * d), in_dtype)
+    hist = jnp.zeros((a, ntaps - 1), jnp.float32)
+    return fn, (x, x, hist, hist)

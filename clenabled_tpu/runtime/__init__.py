@@ -3,8 +3,8 @@
 The reference's runtime core is ``GRCLBase`` (/root/reference/lib/GRCLBase.cpp):
 every block owns an OpenCL context, command queue and JIT-compiled kernel, and
 is pinned to one device chosen by ``(platformType, devSelector, platformId,
-devId)``.  On TPU there is exactly one program (XLA) and one device topology
-(the mesh), so the runtime core here is a single shared :class:`DeviceContext`
+devId)``.  Under JAX there is exactly one program (XLA) and one device
+topology (the mesh), so the runtime core here is a single shared :class:`DeviceContext`
 plus a dtype registry and a block-size policy — no per-block contexts, no
 runtime source-string compilation.
 """

@@ -1,4 +1,4 @@
-"""Block-size / alignment policy and debug flags.
+"""Block-size / alignment policy, debug flags and the compile cache.
 
 The reference sizes device buffers per GR call and grows them on demand
 (lib/clMathOp_impl.cc:371-373) and rounds work sizes to the kernel's preferred
@@ -12,13 +12,12 @@ from __future__ import annotations
 
 import os
 
-# VPU lanes are 128 wide; float32 native tile is (8, 128).  Frames that are
-# multiples of 1024 keep every elementwise kernel and FFT layout aligned.
+# Shape-bucketing grain: frames are padded up to a multiple of this, so a
+# flowgraph compiles for few distinct shapes.
 ALIGN = 1024
 
 # Default samples per scheduler step.  8192 matches the reference's default
-# correlator analysis window (grc/clenabled_clXCorrelate.block.yml) and is a
-# good TPU frame: big enough to amortize dispatch, small enough for VMEM.
+# correlator analysis window (grc/clenabled_clXCorrelate.block.yml).
 DEFAULT_FRAME_SIZE = 8192
 
 DEBUG = bool(int(os.environ.get("CLENABLED_TPU_DEBUG", "0")))
@@ -33,3 +32,26 @@ def validate_frame_size(n: int) -> int:
     if n <= 0:
         raise ValueError(f"frame size must be positive, got {n}")
     return n
+
+
+# The persistent compile cache's default home: a fixed path in the checkout
+# (listed in .gitignore).  The path is part of the cache's key, so it must
+# not move between runs.
+DEFAULT_COMPILE_CACHE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), ".jax_cache")
+
+
+def init_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache and return its directory.
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and
+    this sets nothing; otherwise the cache goes to DEFAULT_COMPILE_CACHE.
+    Call it at the start of a program, before the first compilation."""
+    import jax
+
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if path:
+        return path
+    jax.config.update("jax_compilation_cache_dir", DEFAULT_COMPILE_CACHE)
+    return DEFAULT_COMPILE_CACHE

@@ -1,9 +1,9 @@
-"""Sharding layer: multi-chip execution over a jax Mesh.
+"""Sharding layer: multi-device execution over a jax Mesh.
 
 This is the capability the reference does NOT have (its only scaling story
 is pinning whole blocks to different OpenCL devices, README.md:110).  Here
-the *data* shards across chips and the reference's sequential carried state
-becomes ICI communication:
+the *data* shards across devices and the reference's sequential carried
+state becomes communication between them (NCCL over NVLink on a GPU host):
 
 - time-sharded filtering: the overlap-add/FIR tail that the reference
   carries between work() calls (lib/fft_filter.cc:156-171) becomes a
@@ -12,11 +12,11 @@ becomes ICI communication:
 - the channelizer time-shards the input stream with the same halo pattern
   (its GR history, lib/clPolyphaseChannelizer_impl.cc:63);
 - the X-Engine's station cross-multiply uses ``all_to_all`` to move from
-  station-sharded capture to channel-sharded correlation (each chip then
+  station-sharded capture to channel-sharded correlation (each device then
   owns the full Gram matrix for its channel slice) — this is the
   CP/EP-analogue for interferometry;
-- multi-host: the same shard_map code over a (host, chip) mesh via
-  jax.distributed (DCN between hosts, ICI within).
+- multi-host: the same shard_map code over a (host, device) mesh via
+  jax.distributed.
 """
 
 from clenabled_tpu.sharding.mesh import (  # noqa: F401
@@ -36,7 +36,6 @@ from clenabled_tpu.sharding.xengine_sharded import (  # noqa: F401
 from clenabled_tpu.sharding.planar_halo import (  # noqa: F401
     make_sharded_fft_filter_planar,
     make_sharded_channelizer_planar,
-    make_sharded_channelizer_fused_oversampled,
     make_sharded_costas_channels,
     sharded_xengine_planar,
 )

@@ -13,8 +13,8 @@ def make_mesh(shape: dict[str, int] | None = None,
               devices: Sequence[jax.Device] | None = None) -> Mesh:
     """Build a mesh.  Default: 1-D over all devices, axis "shard".
 
-    shape e.g. {"host": 2, "shard": 4} builds a 2-D mesh (outer axis over
-    DCN, inner over ICI) — pass axis sizes whose product equals the device
+    shape e.g. {"host": 2, "shard": 4} builds a 2-D mesh (outer axis
+    across hosts, inner across the devices of one host) — pass axis sizes whose product equals the device
     count.
     """
     devices = list(devices if devices is not None else jax.devices())
@@ -30,8 +30,9 @@ def make_mesh(shape: dict[str, int] | None = None,
 def initialize_distributed(coordinator_address: str | None = None,
                            num_processes: int | None = None,
                            process_id: int | None = None) -> None:
-    """Multi-host bring-up (jax.distributed).  On TPU pods with default
-    metadata this is argument-free; explicit args support manual clusters."""
+    """Multi-host bring-up (jax.distributed).  Nothing tells JAX of a
+    cluster here, so pass coordinator_address ("host:port"),
+    num_processes and process_id explicitly."""
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,

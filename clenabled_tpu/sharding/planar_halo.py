@@ -1,8 +1,8 @@
-"""Planar (complex-free) time-sharded filtering — the multi-chip TPU path.
+"""Planar (complex-free) time-sharded filtering.
 
 Same ring-ppermute halo design as sharding/halo.py, with streams and state
-as (re, im) float32 pairs so the collectives and kernels run on backends
-without complex64.  shard_map specs follow the planar.PC pytree structure.
+as (re, im) float32 pairs.  shard_map specs follow the planar.PC pytree
+structure.
 """
 
 from __future__ import annotations
@@ -22,31 +22,13 @@ def _ring_fwd(n: int):
 
 
 def make_sharded_fft_filter_planar(taps, mesh: Mesh, axis: str = "shard",
-                                   decimation: int = 1,
-                                   use_pallas: bool | None = None):
-    """Planar fast-convolution filter across time-shards.
+                                   decimation: int = 1):
+    """Planar fast-convolution filter across time-shards: overlap-add per
+    shard with the additive output-tail halo (shard j adds shard j−1's
+    tail; shard 0 the carried state).
 
     apply(state, x: PC[D·L]) → (state, y: PC); per-shard block must be a
-    multiple of the plan's quantum and of ``decimation``.
-
-    use_pallas (default auto: on for TPU backends when the fused
-    overlap-save kernel supports the tap count — the same auto-route as
-    the single-chip make_fft_filter_planar): per-shard fused Pallas OFS
-    with an INPUT-tail ring halo (shard j consumes shard j−1's last
-    tail_len samples; shard 0 the carried state), identical output
-    samples.  Otherwise the XLA overlap-add with the additive
-    output-tail halo."""
-    if use_pallas is None:
-        use_pallas = jax.default_backend() != "cpu"
-    if use_pallas:
-        from clenabled_tpu.dsp import pallas_kernels
-
-        try:
-            oplan = pallas_kernels.OfsPlan(taps)
-        except ValueError:
-            oplan = None
-        if oplan is not None:
-            return _make_sharded_ofs_pallas(oplan, mesh, axis, decimation)
+    multiple of the plan's nsamples and of ``decimation``."""
     plan = dsp_ofa.plan_fft_filter(taps, decimation=1)
     k = plan.ntaps
     d = mesh.shape[axis]
@@ -97,7 +79,7 @@ def make_sharded_fft_filter_planar(taps, mesh: Mesh, axis: str = "shard",
 def make_sharded_channelizer_planar(taps, num_channels: int,
                                     ninputs_per_iter: int, ch_map,
                                     mesh: Mesh, axis: str = "shard"):
-    """Planar time-sharded PFB channelizer (complex-free multi-chip path):
+    """Planar time-sharded PFB channelizer (complex-free multi-device path):
     input halo = ntaps-1 samples via ring ppermute on both components.
     apply(state, x: PC[D·L]) → (state, out: PC[D·L/R, C])."""
     from clenabled_tpu.dsp import channelizer as dsp_chan
@@ -171,81 +153,6 @@ def sharded_xengine_planar(z, mesh: Mesh, axis: str = "shard", npol: int = 2):
     return run(z)
 
 
-def make_sharded_channelizer_fused_oversampled(taps, num_channels: int,
-                                               ninputs_per_iter: int,
-                                               mesh: Mesh,
-                                               axis: str = "shard"):
-    """Time-sharded FUSED oversampled PFB (the production R<M kernel,
-    pallas_kernels.pfb_oversampled_fused) — per-shard Pallas kernel with a
-    ring-ppermute OS_TAIL_LEN halo.
-
-    Rotation correctness without per-shard constants: a shard's global
-    output-group offset is idx·local/R, a multiple of L (enforced below),
-    and any multiple-of-L group advance leaves the oversampling rotation
-    (j + i·(M−R)) mod M invariant because (M/R)·(M−R) ≡ 0 (mod M) — the
-    same invariance the streaming form relies on between calls.  Output
-    timing equals the single-chip streaming kernel: the stream lags by
-    OS_TAIL_LEN samples.
-
-    apply(state, x: PC[D·local]) → (state, out: PC[D·local/R, M]).
-    local must satisfy the fused kernel's frame constraints per shard.
-    """
-    from clenabled_tpu.dsp import channelizer as dsp_chan
-    from clenabled_tpu.dsp import pallas_kernels
-
-    m, r = num_channels, ninputs_per_iter
-    taps_rm, ntaps = dsp_chan._pfb_constants(taps, m, r)
-    if not dsp_chan.fused_oversampled_supported(m, r, ntaps):
-        raise ValueError(f"fused oversampled kernel unsupported for "
-                         f"M={m}, R={r}, ntaps={ntaps}")
-    import numpy as np
-
-    taps_np = np.asarray(taps_rm)
-    h = pallas_kernels.os_tail_len(m, r, ntaps)
-    ell = m // r
-    d = mesh.shape[axis]
-    perm = _ring_fwd(d)
-    interpret = jax.default_backend() == "cpu"
-
-    def init_state():
-        z = jnp.zeros((d, h), jnp.float32)
-        return (z, jnp.zeros_like(z))
-
-    @jax.jit
-    @partial(jax.shard_map, mesh=mesh,
-             in_specs=((P(axis, None), P(axis, None)),
-                       planar.PC(P(axis), P(axis))),
-             out_specs=((P(axis, None), P(axis, None)),
-                        planar.PC(P(axis, None), P(axis, None))),
-             check_vma=False)  # pallas_call outputs carry no vma info
-    def step(state, x):
-        idx = jax.lax.axis_index(axis)
-        n = x.re.shape[-1]
-        recv_r = jax.lax.ppermute(x.re[-h:], axis, perm)
-        recv_i = jax.lax.ppermute(x.im[-h:], axis, perm)
-        tail_r = jnp.where(idx == 0, state[0][0], recv_r)
-        tail_i = jnp.where(idx == 0, state[1][0], recv_i)
-        tile = min(512, 2048 // ell)
-        while (n // 128) % tile:
-            tile //= 2
-        zr, zi = pallas_kernels.pfb_oversampled_fused(
-            x.re, x.im, tail_r, tail_i, taps_np, m, r, tile_rows=tile,
-            interpret=interpret)
-        new_state = (jnp.where(idx == 0, recv_r, state[0][0])[None],
-                     jnp.where(idx == 0, recv_i, state[1][0])[None])
-        return new_state, planar.PC(zr, zi)
-
-    def apply(state, x):
-        local = x.re.shape[-1] // d
-        if (local // r) % ell or local % 1024:
-            raise ValueError(
-                f"per-shard block {local} must be a multiple of 1024 and "
-                f"of R·L")
-        return step(state, x)
-
-    return init_state, apply
-
-
 def make_sharded_costas_channels(loop_bw: float, order: int, mesh: Mesh,
                                  axis: str = "shard", chunk: int = 1024,
                                  warmup: int = 512,
@@ -294,55 +201,6 @@ def make_sharded_costas_channels(loop_bw: float, order: int, mesh: Mesh,
         return (nlag, ntail), out, diag
 
     def apply(state, x):
-        return step(state, x)
-
-    return init_state, apply
-
-
-def _make_sharded_ofs_pallas(oplan, mesh: Mesh, axis: str, decimation: int):
-    """Fused overlap-save Pallas filter per time-shard with an input-tail
-    ring halo (the round-3 pattern shared with the sharded fused OS-PFB)."""
-    from clenabled_tpu.dsp import fft_filter as dsp_ff
-    from clenabled_tpu.dsp import pallas_kernels
-
-    oplan.decimation = decimation
-    tl = oplan.tail_len
-    quantum = dsp_ff.frame_quantum(oplan)
-    d = mesh.shape[axis]
-    perm = _ring_fwd(d)
-    interpret = jax.default_backend() == "cpu"
-
-    def init_state():
-        z = jnp.zeros((d, tl), jnp.float32)
-        return (z, jnp.zeros_like(z))
-
-    @jax.jit
-    @partial(jax.shard_map, mesh=mesh,
-             in_specs=((P(axis, None), P(axis, None)),
-                       planar.PC(P(axis), P(axis))),
-             out_specs=((P(axis, None), P(axis, None)),
-                        planar.PC(P(axis), P(axis))),
-             check_vma=False)  # pallas_call outputs carry no vma info
-    def step(state, x):
-        idx = jax.lax.axis_index(axis)
-        recv_r = jax.lax.ppermute(x.re[-tl:], axis, perm)
-        recv_i = jax.lax.ppermute(x.im[-tl:], axis, perm)
-        tail_r = jnp.where(idx == 0, state[0][0], recv_r)
-        tail_i = jnp.where(idx == 0, state[1][0], recv_i)
-        yr, yi = pallas_kernels.ofs_filter_planar(
-            x.re, x.im, tail_r, tail_i, oplan, interpret=interpret)
-        if decimation > 1:
-            yr, yi = yr[::decimation], yi[::decimation]
-        new_state = (jnp.where(idx == 0, recv_r, state[0][0])[None],
-                     jnp.where(idx == 0, recv_i, state[1][0])[None])
-        return new_state, planar.PC(yr, yi)
-
-    def apply(state, x):
-        local = x.re.shape[-1] // d
-        if local % quantum or local % decimation:
-            raise ValueError(
-                f"per-shard block {local} must be a multiple of the fused "
-                f"kernel quantum {quantum} and decimation={decimation}")
         return step(state, x)
 
     return init_state, apply

@@ -1,4 +1,4 @@
-"""Window-parallel sharded cross-correlators (round 4, VERDICT r3 item 7).
+"""Window-parallel sharded cross-correlators.
 
 The TD lag scan and FD conj-mult correlators are per-analysis-window
 computations with no carried state (the reference runs one window per

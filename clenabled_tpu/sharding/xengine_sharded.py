@@ -1,11 +1,11 @@
 """Station-sharded X-Engine: all_to_all from station-sharding to
 channel-sharding, then local per-channel Gram matmuls.
 
-Capture is naturally station-sharded (each chip ingests its antennas'
+Capture is naturally station-sharded (each device ingests its antennas'
 streams — the analogue of the reference's per-antenna input ports,
 lib/clXEngine_impl.cc:88-90), but the cross-multiply needs ALL stations per
 channel.  One ``all_to_all`` over the mesh axis re-shards [T, S/D, F, P] →
-[T, S, F/D, P]; each chip then owns the complete correlation output for its
+[T, S, F/D, P]; each device then owns the complete correlation output for its
 channel slice — no further communication, and the integration state stays
 channel-sharded on-device.
 """
@@ -99,17 +99,17 @@ def make_sharded_xengine_stacked(num_inputs: int, num_channels: int,
                                  output_format: int =
                                  dsp_xengine.CLXCORR_TRIANGULAR_ORDER,
                                  pipeline_integration: int = 0,
-                                 compute_dtype=None, scale: float = 1.0,
-                                 use_pallas: bool | None = None):
-    """Multi-chip stacked-Gram X-Engine: the single-matmul channel-major
-    engine (dsp.xengine.xengine_correlate_stacked — 124-149 TFLOP/s useful
-    int8 per chip) over a station-sharded capture mesh.
+                                 compute_dtype=None, scale: float = 1.0):
+    """Multi-device stacked-Gram X-Engine: the single-matmul channel-major
+    engine (dsp.xengine.xengine_correlate_stacked) over a station-sharded
+    capture mesh.
 
-    Capture is lane-sharded: each chip ingests its antennas' channelized
-    planar streams as zr/zi [F, T, (S·P)/D] (float32/bfloat16/int8 — the
-    IChar samples travel the ICI as int8, quartering the all_to_all
-    bytes).  One ``all_to_all`` re-shards to channel-sharded [F/D, T, S·P]
-    (the Gram needs all stations per channel); each chip then owns the
+    Capture is station-sharded: each device ingests its antennas'
+    channelized planar streams as zr/zi [F, T, (S·P)/D] (float32/bfloat16/
+    int8 — the IChar samples cross the interconnect as int8, quartering
+    the all_to_all bytes).  One ``all_to_all`` re-shards to channel-sharded
+    [F/D, T, S·P] (the Gram needs all stations per channel); each device
+    then owns the
     complete correlation for its channel slice and the integration state
     stays channel-sharded on device (float32, exact int32 Gram per call
     for int8 ingest; ``scale`` e.g. 1/127² applied per call).
@@ -136,9 +136,7 @@ def make_sharded_xengine_stacked(num_inputs: int, num_channels: int,
              in_specs=(((P(axis), P(axis)), P()),
                        (P(None, None, axis), P(None, None, axis))),
              out_specs=(((P(axis), P(axis)), P()),
-                        ((P(axis), P(axis)), P())),
-             check_vma=False)  # the per-shard Gram may route to the
-    # Pallas kernel (round 3), whose outputs carry no vma info
+                        ((P(axis), P(axis)), P())))
     def step(state, frames):
         (acc_re, acc_im), count = state
         zr_local, zi_local = frames            # [F, T, SP/D]
@@ -149,8 +147,7 @@ def make_sharded_xengine_stacked(num_inputs: int, num_channels: int,
                                     concat_axis=2, tiled=True)
         corr = dsp_xengine.xengine_correlate_stacked(
             zr_all, zi_all, npol=npol, output_format=output_format,
-            compute_dtype=compute_dtype, scale=scale,
-            use_pallas=use_pallas)
+            compute_dtype=compute_dtype, scale=scale)
         (acc_re, acc_im), count, (out_re, out_im), ready = \
             dsp_xengine._pipeline_emit(
                 (acc_re, acc_im), (corr.re, corr.im), count, pipe)

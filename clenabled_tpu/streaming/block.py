@@ -1,4 +1,4 @@
-"""Block protocol: the TPU-native encoding of GNU Radio's block contracts.
+"""Block protocol: the encoding here of GNU Radio's block contracts.
 
 A block is pure and jit-traceable.  Its carried state (filter tails, loop
 phase, integration accumulators — see SURVEY §5 "checkpoint/resume") is an

@@ -9,7 +9,7 @@ mirrors built around the clenabled_tpu_* descriptors in grc/:
   * the SDR hardware sources (uhd_usrp_source, rtlsdr_source) become
     analog signal + noise sources — the demos must run anywhere;
   * the Qt GUI sinks become head + null sinks (run-to-completion);
-  * every TPU block keeps the reference flowgraph's role and topology.
+  * every clenabled block keeps the reference flowgraph's role and topology.
 
 Each mirror cites its reference original in the options comment.  The
 corpus is validated by tests/test_grc_examples.py: every .grc parses,
@@ -107,7 +107,7 @@ def fft_vxx(name, size="fft_size"):
         "shift": "False", "type": "complex", "window": "[]"})
 
 
-def tpu(name, bid, **params):
+def blk(name, bid, **params):
     return (name, f"clenabled_tpu_{bid}",
             {k: str(v) for k, v in params.items()})
 
@@ -118,7 +118,7 @@ def tpu(name, bid, **params):
 
 _XCORR_COMMENT = (
     "Mirror of {ref}: correlate a reference path against a delayed copy "
-    "with independent noise, recovering the delay from the TPU "
+    "with independent noise, recovering the delay from the clenabled "
     "cross-correlator's 'corr' message (the reference feeds "
     "xcorrelate_ExtractDelay; any message sink/handler works here).  SDR "
     "source replaced by signal+noise so the demo runs anywhere.")
@@ -126,7 +126,7 @@ _XCORR_COMMENT = (
 SPECS: dict[str, dict] = {}
 
 SPECS["xcorr_test"] = {
-    "title": "TPU cross-correlation demo (2 signals)",
+    "title": "clenabled cross-correlation demo (2 signals)",
     "comment": _XCORR_COMMENT.format(
         ref="examples/xcorr_test_opencl.grc"),
     "blocks": [
@@ -140,7 +140,7 @@ SPECS["xcorr_test"] = {
         add_cc("path_a"),
         add_cc("path_b_sum"),
         delay("path_b"),
-        tpu("xcorr", "clXCorrelate", num_inputs=2,
+        blk("xcorr", "clXCorrelate", num_inputs=2,
             signal_length="corr_frame_size", max_search="max_search",
             decim_frames=2),
     ],
@@ -153,7 +153,7 @@ SPECS["xcorr_test"] = {
 }
 
 SPECS["xcorr_test_4_signals"] = {
-    "title": "TPU cross-correlation demo (4 signals)",
+    "title": "clenabled cross-correlation demo (4 signals)",
     "comment": _XCORR_COMMENT.format(
         ref="examples/xcorr_test_opencl_4_signals.grc"),
     "blocks": [
@@ -167,7 +167,7 @@ SPECS["xcorr_test_4_signals"] = {
         add_cc("path_3s"),
         delay("path_1", "150"), delay("path_2", "300"),
         delay("path_3", "450"),
-        tpu("xcorr", "clXCorrelate", num_inputs=4,
+        blk("xcorr", "clXCorrelate", num_inputs=4,
             signal_length="corr_frame_size", max_search="max_search",
             decim_frames=2),
     ],
@@ -184,7 +184,7 @@ SPECS["xcorr_test_4_signals"] = {
 }
 
 SPECS["xcorr_max_rate_no_ui"] = {
-    "title": "TPU cross-correlation at max rate (no UI)",
+    "title": "clenabled cross-correlation at max rate (no UI)",
     "comment": "Mirror of examples/xcorr_test_max_rate_no_ui.grc: the "
                "throughput-benchmark variant — no GUI, no throttle, head "
                "blocks bound the run.  " + _XCORR_COMMENT.format(
@@ -199,7 +199,7 @@ SPECS["xcorr_max_rate_no_ui"] = {
         add_cc("path_b_sum"),
         delay("path_b"),
         head("head_a", "8388608"), head("head_b", "8388608"),
-        tpu("xcorr", "clXCorrelate", num_inputs=2, signal_length=8192,
+        blk("xcorr", "clXCorrelate", num_inputs=2, signal_length=8192,
             max_search=512, decim_frames=1),
     ],
     "connections": [
@@ -212,9 +212,9 @@ SPECS["xcorr_max_rate_no_ui"] = {
 }
 
 SPECS["xcorr_clxengine"] = {
-    "title": "TPU X-Engine FX correlator demo",
+    "title": "clenabled X-Engine FX correlator demo",
     "comment": "Mirror of examples/xcorr_clxengine.grc: N antenna streams "
-               "into the TPU X-Engine (FX correlator); integrated "
+               "into the clenabled X-Engine (FX correlator); integrated "
                "cross-power baselines publish on the 'xcorr' message port "
                "(the reference feeds xcorrelate_triangular_to_full and a "
                "frequency sink).  RTL-SDR sources replaced by signal+noise "
@@ -227,7 +227,7 @@ SPECS["xcorr_clxengine"] = {
         noise_source("ant_n0", "0.05"), noise_source("ant_n1", "0.05"),
         noise_source("ant_n2", "0.05"), noise_source("ant_n3", "0.05"),
         add_cc("ant_0"), add_cc("ant_1"), add_cc("ant_2"), add_cc("ant_3"),
-        tpu("xengine", "clXEngine", data_type=1, polarization=1,
+        blk("xengine", "clXEngine", data_type=1, polarization=1,
             num_inputs=4, num_channels="num_channels",
             integration="integration", antenna_list="[]"),
     ],
@@ -242,9 +242,9 @@ SPECS["xcorr_clxengine"] = {
 }
 
 SPECS["freq_domain_xcorr"] = {
-    "title": "TPU frequency-domain cross-correlation",
+    "title": "clenabled frequency-domain cross-correlation",
     "comment": "Mirror of examples/freq_domain_xcorr_opencl.grc: two "
-               "paths → stream_to_vector → forward FFT → the TPU FD "
+               "paths → stream_to_vector → forward FFT → the clenabled FD "
                "correlator (input_type=1, spectra in), correlation "
                "magnitude vector out to a sink (the reference drives "
                "qtgui_vector_sink_f + VectorMaxIndexToVar).",
@@ -258,7 +258,7 @@ SPECS["freq_domain_xcorr"] = {
         delay("path_b", "64"),
         stream_to_vector("vec_a"), stream_to_vector("vec_b"),
         fft_vxx("fft_a"), fft_vxx("fft_b"),
-        tpu("fdx", "clxcorrelate_fft_vcf", fft_size="fft_size",
+        blk("fdx", "clxcorrelate_fft_vcf", fft_size="fft_size",
             num_inputs=2, input_type=1),
         vector_to_stream("tostream"),
         null_sink("sink", "float"),
@@ -276,7 +276,7 @@ SPECS["freq_domain_xcorr"] = {
 }
 
 SPECS["fft_xcorr_streams"] = {
-    "title": "TPU FD cross-correlation, time-domain inputs (3 streams)",
+    "title": "clenabled FD cross-correlation, time-domain inputs (3 streams)",
     "comment": "Mirror of examples/fft_xcorr_opencl_uhd2_30MSPS.grc: the "
                "FD correlator in input_type=2 (TIME domain) mode does its "
                "own FFTs on-device — three time-stream paths in, two "
@@ -292,7 +292,7 @@ SPECS["fft_xcorr_streams"] = {
         delay("path_1", "100"), delay("path_2", "200"),
         stream_to_vector("vec_0"), stream_to_vector("vec_1"),
         stream_to_vector("vec_2"),
-        tpu("fdx", "clxcorrelate_fft_vcf", fft_size="fft_size",
+        blk("fdx", "clxcorrelate_fft_vcf", fft_size="fft_size",
             num_inputs=3, input_type=2),
         vector_to_stream("tostream_0"), vector_to_stream("tostream_1"),
         null_sink("sink_0", "float"), null_sink("sink_1", "float"),
@@ -313,74 +313,74 @@ SPECS["fft_xcorr_streams"] = {
 }
 
 # ---- per-block comparison flowgraphs (examples/test_flowgraphs mirrors):
-# TPU block vs the stock GR implementation, difference into a sink — the
+# clenabled block vs the stock GR implementation, difference into a sink — the
 # reference's A/B verification pattern.
 
 SPECS["test_complex_conj"] = {
-    "title": "A/B: TPU complex conjugate vs GR native",
+    "title": "A/B: clenabled complex conjugate vs GR native",
     "comment": "Mirror of examples/test_flowgraphs/OpenCL_Test-ComplexConj"
                ".grc: same source through clComplexConjugate and GR's "
                "conjugate_cc, difference to a sink (should be ~0).",
     "blocks": [
         var("samp_rate", "1e6"),
         sig_source("src", freq="10e3"),
-        tpu("conj_tpu", "clComplexConjugate"),
+        blk("conj_cl", "clComplexConjugate"),
         conjugate_cc("conj_gr"),
         sub_xx("diff"),
         null_sink("sink"),
     ],
     "connections": [
-        ("src", "0", "conj_tpu", "0"), ("src", "0", "conj_gr", "0"),
-        ("conj_tpu", "0", "diff", "0"), ("conj_gr", "0", "diff", "1"),
+        ("src", "0", "conj_cl", "0"), ("src", "0", "conj_gr", "0"),
+        ("conj_cl", "0", "diff", "0"), ("conj_gr", "0", "diff", "1"),
         ("diff", "0", "sink", "0"),
     ],
 }
 
 SPECS["test_complex_to_mag"] = {
-    "title": "A/B: TPU complex-to-mag vs GR native",
+    "title": "A/B: clenabled complex-to-mag vs GR native",
     "comment": "Mirror of examples/test_flowgraphs/OpenCL_Test-ComplexToMag"
                ".grc.",
     "blocks": [
         var("samp_rate", "1e6"),
         sig_source("src", freq="10e3"),
-        tpu("mag_tpu", "clComplexToMag"),
+        blk("mag_cl", "clComplexToMag"),
         complex_to_mag("mag_gr"),
         sub_xx("diff", "float"),
         null_sink("sink", "float"),
     ],
     "connections": [
-        ("src", "0", "mag_tpu", "0"), ("src", "0", "mag_gr", "0"),
-        ("mag_tpu", "0", "diff", "0"), ("mag_gr", "0", "diff", "1"),
+        ("src", "0", "mag_cl", "0"), ("src", "0", "mag_gr", "0"),
+        ("mag_cl", "0", "diff", "0"), ("mag_gr", "0", "diff", "1"),
         ("diff", "0", "sink", "0"),
     ],
 }
 
 SPECS["test_complex_to_arg"] = {
-    "title": "TPU complex-to-arg",
+    "title": "clenabled complex-to-arg",
     "comment": "Mirror of examples/test_flowgraphs/OpenCL_Test-ComplexToArg"
                ".grc (the reference compares against native "
                "complex_to_arg; note its fast_atan2f LUT differs from the "
-               "exact atan2 by ~1e-5 — BENCH_TPU.md).",
+               "exact atan2 by ~1e-5 — tests/test_golden_streaming.py).",
     "blocks": [
         var("samp_rate", "1e6"),
         sig_source("src", freq="10e3"),
-        tpu("arg_tpu", "clComplexToArg"),
+        blk("arg_cl", "clComplexToArg"),
         null_sink("sink", "float"),
     ],
     "connections": [
-        ("src", "0", "arg_tpu", "0"), ("arg_tpu", "0", "sink", "0"),
+        ("src", "0", "arg_cl", "0"), ("arg_cl", "0", "sink", "0"),
     ],
 }
 
 SPECS["test_mult_add_const"] = {
-    "title": "TPU multiply-const + add-const chain",
+    "title": "clenabled multiply-const + add-const chain",
     "comment": "Mirror of examples/test_flowgraphs/OpenCL_Test-Mult-Add-"
                "Const.grc: back-to-back elementwise constant ops.",
     "blocks": [
         var("samp_rate", "1e6"),
         sig_source("src", freq="10e3"),
-        tpu("mult", "clMultConst", k="2.0"),
-        tpu("add", "clAddConst", k="0.5"),
+        blk("mult", "clMultConst", k="2.0"),
+        blk("add", "clAddConst", k="0.5"),
         null_sink("sink"),
     ],
     "connections": [
@@ -390,16 +390,16 @@ SPECS["test_mult_add_const"] = {
 }
 
 SPECS["test_mult_add_subtract"] = {
-    "title": "TPU multiply / add / subtract (2-input elementwise)",
+    "title": "clenabled multiply / add / subtract (2-input elementwise)",
     "comment": "Mirror of examples/test_flowgraphs/OpenCL_Test-Mult-Add-"
                "Subtract.grc: the two-input elementwise family.",
     "blocks": [
         var("samp_rate", "1e6"),
         sig_source("src_a", freq="10e3"),
         sig_source("src_b", freq="20e3"),
-        tpu("mult", "clMultiply"),
-        tpu("add", "clAdd"),
-        tpu("sub", "clSubtract"),
+        blk("mult", "clMultiply"),
+        blk("add", "clAdd"),
+        blk("sub", "clSubtract"),
         null_sink("sink"),
     ],
     "connections": [
@@ -411,15 +411,15 @@ SPECS["test_mult_add_subtract"] = {
 }
 
 SPECS["test_mult_log10"] = {
-    "title": "TPU multiply + log10 chain",
+    "title": "clenabled multiply + log10 chain",
     "comment": "Mirror of examples/test_flowgraphs/OpenCL_Test-Mult-Log10"
-               ".grc: power then dB through the TPU Log10 block.",
+               ".grc: power then dB through the clenabled Log10 block.",
     "blocks": [
         var("samp_rate", "1e6"),
         sig_source("src", freq="10e3"),
-        tpu("mult", "clMultiplyConjugate"),
+        blk("mult", "clMultiplyConjugate"),
         complex_to_mag("mag"),
-        tpu("log10", "clLog10", n="10.0", k="0.0"),
+        blk("log10", "clLog10", n="10.0", k="0.0"),
         null_sink("sink", "float"),
     ],
     "connections": [
@@ -430,7 +430,7 @@ SPECS["test_mult_log10"] = {
 }
 
 SPECS["test_log"] = {
-    "title": "TPU natural-log-form block (clLog)",
+    "title": "clenabled natural-log-form block (clLog)",
     "comment": "Mirror of the reference's clLog block flowgraph role "
                "(grc/clenabled_clLog.block.yml): n*log10(x)+k on a float "
                "stream, the clLog companion to clLog10.",
@@ -438,7 +438,7 @@ SPECS["test_log"] = {
         var("samp_rate", "1e6"),
         sig_source("src", freq="10e3"),
         complex_to_mag("mag"),
-        tpu("log", "clLog", n="1.0", k="0.0"),
+        blk("log", "clLog", n="1.0", k="0.0"),
         null_sink("sink", "float"),
     ],
     "connections": [
@@ -448,14 +448,14 @@ SPECS["test_log"] = {
 }
 
 SPECS["test_snr_helper"] = {
-    "title": "TPU SNR helper",
+    "title": "clenabled SNR helper",
     "comment": "Mirror of examples/test_flowgraphs/OpenCL_Test-SNR-Helper"
                ".grc.",
     "blocks": [
         var("samp_rate", "1e6"),
         sig_source("src", freq="10e3"),
         complex_to_mag("mag"),
-        tpu("snr", "clSNR", n="10.0", k="0.0"),
+        blk("snr", "clSNR", n="10.0", k="0.0"),
         null_sink("sink", "float"),
     ],
     "connections": [
@@ -465,13 +465,13 @@ SPECS["test_snr_helper"] = {
 }
 
 SPECS["test_fft"] = {
-    "title": "TPU forward FFT",
+    "title": "clenabled forward FFT",
     "comment": "Mirror of examples/test_flowgraphs/OpenCL_Test-FFT.grc.",
     "blocks": [
         var("samp_rate", "1e6"),
         var("fft_size", "2048"),
         sig_source("src", freq="10e3"),
-        tpu("fft", "clFFT", fft_size="fft_size", direction=1,
+        blk("fft", "clFFT", fft_size="fft_size", direction=1,
             window="None", shift="False", num_streams=1),
         null_sink("sink"),
     ],
@@ -481,7 +481,7 @@ SPECS["test_fft"] = {
 }
 
 SPECS["test_fft_rev"] = {
-    "title": "TPU FFT forward → reverse round trip",
+    "title": "clenabled FFT forward → reverse round trip",
     "comment": "Mirror of examples/test_flowgraphs/OpenCL_Test-FFT-Rev.grc:"
                " fwd then rev FFT; like clFFT the reverse pass is UNSCALED "
                "(clFFT backward scale forced to 1.0), so the round trip "
@@ -490,11 +490,11 @@ SPECS["test_fft_rev"] = {
         var("samp_rate", "1e6"),
         var("fft_size", "2048"),
         sig_source("src", freq="10e3"),
-        tpu("fft_fwd", "clFFT", fft_size="fft_size", direction=1,
+        blk("fft_fwd", "clFFT", fft_size="fft_size", direction=1,
             window="None", shift="False", num_streams=1),
-        tpu("fft_rev", "clFFT", fft_size="fft_size", direction=-1,
+        blk("fft_rev", "clFFT", fft_size="fft_size", direction=-1,
             window="None", shift="False", num_streams=1),
-        tpu("rescale", "clMultConst", k="1.0/2048"),
+        blk("rescale", "clMultConst", k="1.0/2048"),
         null_sink("sink"),
     ],
     "connections": [
@@ -504,17 +504,17 @@ SPECS["test_fft_rev"] = {
 }
 
 SPECS["test_fft_multstreams"] = {
-    "title": "TPU FFT over multiple parallel streams",
+    "title": "clenabled FFT over multiple parallel streams",
     "comment": "Mirror of examples/test_flowgraphs/OpenCL_Test-FFT-"
                "MultStreams.grc: one clFFT block batch-transforms N "
-               "parallel streams in a single device pass (the TPU lane-"
-               "packing answer to the reference's per-stream kernels).",
+               "parallel streams in a single device pass (the batched "
+               "answer to the reference's per-stream kernels).",
     "blocks": [
         var("samp_rate", "1e6"),
         var("fft_size", "1024"),
         sig_source("src_a", freq="10e3"),
         sig_source("src_b", freq="25e3"),
-        tpu("fft", "clFFT", fft_size="fft_size", direction=1,
+        blk("fft", "clFFT", fft_size="fft_size", direction=1,
             window="None", shift="False", num_streams=2),
         null_sink("sink_a"), null_sink("sink_b"),
     ],
@@ -525,13 +525,13 @@ SPECS["test_fft_multstreams"] = {
 }
 
 SPECS["test_filter"] = {
-    "title": "TPU low-pass filter (frequency-domain)",
+    "title": "clenabled low-pass filter (frequency-domain)",
     "comment": "Mirror of examples/test_flowgraphs/OpenCL_Test-Filter.grc: "
                "the designer-driven LPF in overlap-add FFT mode.",
     "blocks": [
         var("samp_rate", "1e6"),
         sig_source("src", freq="10e3"),
-        tpu("lpf", "clLowPassFilter", decimation=1, gain="1.0",
+        blk("lpf", "clLowPassFilter", decimation=1, gain="1.0",
             samp_rate="samp_rate", cutoff_freq="100e3",
             transition_width="50e3", use_time="False"),
         null_sink("sink"),
@@ -542,14 +542,14 @@ SPECS["test_filter"] = {
 }
 
 SPECS["test_filter_tapbased"] = {
-    "title": "TPU FIR tap filter (frequency-domain)",
+    "title": "clenabled FIR tap filter (frequency-domain)",
     "comment": "Mirror of examples/test_flowgraphs/OpenCL_Test-Filter-"
                "TapBased.grc: user-supplied taps, OFA mode.",
     "blocks": [
         var("samp_rate", "1e6"),
         var("taps", "[0.04]*25"),
         sig_source("src", freq="10e3"),
-        tpu("fir", "clFIRTapFilter", decimation=1, taps="taps",
+        blk("fir", "clFIRTapFilter", decimation=1, taps="taps",
             use_time="False"),
         null_sink("sink"),
     ],
@@ -559,15 +559,14 @@ SPECS["test_filter_tapbased"] = {
 }
 
 SPECS["test_filter_tapbased_time"] = {
-    "title": "TPU FIR tap filter (time-domain)",
+    "title": "clenabled FIR tap filter (time-domain)",
     "comment": "Mirror of examples/test_flowgraphs/OpenCL_Test-Filter-"
-               "TapBased-Time.grc: user-supplied taps, direct TD FIR "
-               "(the banded-MXU Pallas kernel on TPU).",
+               "TapBased-Time.grc: user-supplied taps, direct TD FIR.",
     "blocks": [
         var("samp_rate", "1e6"),
         var("taps", "[0.04]*25"),
         sig_source("src", freq="10e3"),
-        tpu("fir", "clFIRTapFilter", decimation=1, taps="taps",
+        blk("fir", "clFIRTapFilter", decimation=1, taps="taps",
             use_time="True"),
         null_sink("sink"),
     ],
@@ -577,14 +576,14 @@ SPECS["test_filter_tapbased_time"] = {
 }
 
 SPECS["test_complex_filter_time"] = {
-    "title": "TPU complex-tap filter (time-domain)",
+    "title": "clenabled complex-tap filter (time-domain)",
     "comment": "Mirror of examples/test_flowgraphs/OpenCL_Test-"
                "ComplexFilter-TapBased-Time.grc: complex taps, TD FIR.",
     "blocks": [
         var("samp_rate", "1e6"),
         var("taps", "[0.04+0.01j]*25"),
         sig_source("src", freq="10e3"),
-        tpu("fir", "clComplexFilter", decimation=1, taps="taps",
+        blk("fir", "clComplexFilter", decimation=1, taps="taps",
             use_time="True"),
         null_sink("sink"),
     ],
@@ -594,7 +593,7 @@ SPECS["test_complex_filter_time"] = {
 }
 
 SPECS["test_polyphase_channelizer"] = {
-    "title": "TPU polyphase channelizer",
+    "title": "clenabled polyphase channelizer",
     "comment": "Mirror of examples/test_flowgraphs/OpenCL_Test-Polyphase"
                "Channelizer.grc (its parameters: 16 channels, critically "
                "sampled, all channels mapped).",
@@ -603,7 +602,7 @@ SPECS["test_polyphase_channelizer"] = {
         var("num_channels", "16"),
         var("pfb_taps", "[0.01]*64"),
         sig_source("src", freq="10e3"),
-        tpu("pfb", "clPolyphaseChannelizer", taps="pfb_taps",
+        blk("pfb", "clPolyphaseChannelizer", taps="pfb_taps",
             buf_items=8192, num_channels="num_channels",
             ninputs_per_iter="num_channels",
             ch_map="list(range(num_channels))"),
@@ -615,13 +614,13 @@ SPECS["test_polyphase_channelizer"] = {
 }
 
 SPECS["test_sigsource"] = {
-    "title": "TPU signal source",
+    "title": "clenabled signal source",
     "comment": "Mirror of examples/test_flowgraphs/OpenCL_Test-SigSource"
-               ".grc: the TPU block generates the stream device-side in "
+               ".grc: the clenabled block generates the stream device-side in "
                "frame_size batches.",
     "blocks": [
         var("samp_rate", "1e6"),
-        tpu("src", "clSignalSource", samp_rate="samp_rate", waveform=1,
+        blk("src", "clSignalSource", samp_rate="samp_rate", waveform=1,
             freq="10e3", amplitude="1.0", frame_size=8192),
         throttle("thr"),
         null_sink("sink"),
@@ -632,15 +631,15 @@ SPECS["test_sigsource"] = {
 }
 
 SPECS["test_magphase_roundtrip"] = {
-    "title": "TPU mag/phase decompose + recompose round trip",
+    "title": "clenabled mag/phase decompose + recompose round trip",
     "comment": "Mirror of examples/test_flowgraphs/OpenCL_Test-"
                "MagPhaseToComplex.grc (+ ComplexToMagPhase): decompose to "
                "mag/phase and rebuild; difference vs the source is ~0.",
     "blocks": [
         var("samp_rate", "1e6"),
         sig_source("src", freq="10e3"),
-        tpu("decomp", "clComplexToMagPhase"),
-        tpu("recomp", "clMagPhaseToComplex"),
+        blk("decomp", "clComplexToMagPhase"),
+        blk("recomp", "clMagPhaseToComplex"),
         sub_xx("diff"),
         null_sink("sink"),
     ],
@@ -653,8 +652,8 @@ SPECS["test_magphase_roundtrip"] = {
 }
 
 SPECS["test_costas_loop"] = {
-    "title": "TPU Costas loop",
-    "comment": "Carrier recovery on a noisy BPSK-like tone through the TPU "
+    "title": "clenabled Costas loop",
+    "comment": "Carrier recovery on a noisy BPSK-like tone through the clenabled "
                "Costas loop (speculative chunked mode with exact fallback; "
                "blocks/demod).  Role of the reference's test-clenabled "
                "--testcostas path.",
@@ -663,7 +662,7 @@ SPECS["test_costas_loop"] = {
         sig_source("src", freq="1e3"),
         noise_source("noise", "0.05"),
         add_cc("chan"),
-        tpu("costas", "clCostasLoop", loop_bw="0.02", order=2),
+        blk("costas", "clCostasLoop", loop_bw="0.02", order=2),
         null_sink("sink"),
     ],
     "connections": [
@@ -673,14 +672,14 @@ SPECS["test_costas_loop"] = {
 }
 
 SPECS["test_quad_demod"] = {
-    "title": "TPU quadrature demod",
-    "comment": "FM discriminator through the TPU quadrature demod block "
-               "(the fused lane-roll Pallas kernel on TPU).  Role of the "
+    "title": "clenabled quadrature demod",
+    "comment": "FM discriminator through the clenabled quadrature demod block "
+               "Role of the "
                "reference's clQuadratureDemod test flowgraphs.",
     "blocks": [
         var("samp_rate", "1e6"),
         sig_source("src", freq="10e3"),
-        tpu("demod", "clQuadratureDemod", gain="1.0"),
+        blk("demod", "clQuadratureDemod", gain="1.0"),
         null_sink("sink", "float"),
     ],
     "connections": [
@@ -689,7 +688,7 @@ SPECS["test_quad_demod"] = {
 }
 
 SPECS["test_clkernel"] = {
-    "title": "TPU custom user kernel (multiply-const examples)",
+    "title": "clenabled custom user kernel (multiply-const examples)",
     "comment": "Mirror of examples/test_flowgraphs/OpenCL_Test-clkernel"
                ".grc using the multiply-const custom-kernel example "
                "(examples/kernel1to1_multiply_const_complex.py — the "
@@ -699,7 +698,7 @@ SPECS["test_clkernel"] = {
     "blocks": [
         var("samp_rate", "1e6"),
         sig_source("src", freq="10e3"),
-        tpu("user_kernel", "clKernel1To1",
+        blk("user_kernel", "clKernel1To1",
             filename="'examples/kernel1to1_multiply_const_complex.py'",
             fnname="'multiply_const_complex'"),
         null_sink("sink"),

@@ -14,117 +14,116 @@ import os
 
 # (block id, label, category, make template, [(param id, label, default)])
 BLOCKS = [
-    ("clSignalSource", "Signal Source", "[TPU-Accelerated]",
+    ("clSignalSource", "Signal Source", "[GPU-Accelerated]",
      "clenabled_tpu.blocks.SignalSource(${samp_rate}, ${waveform}, ${freq}, ${amplitude}, frame_size=${frame_size})",
      [("samp_rate", "Sample Rate", "samp_rate"), ("waveform", "Waveform (1=cos,2=sin)", "1"),
       ("freq", "Frequency", "1000"), ("amplitude", "Amplitude", "1.0"),
       ("frame_size", "Frame Size", "8192")]),
-    ("clFFT", "FFT", "[TPU-Accelerated]",
+    ("clFFT", "FFT", "[GPU-Accelerated]",
      "clenabled_tpu.blocks.Fft(${fft_size}, direction=${direction}, window=${window}, shift=${shift}, num_streams=${num_streams})",
      [("fft_size", "FFT Size", "2048"), ("direction", "Direction (1=fwd,-1=rev)", "1"),
       ("window", "Window Taps", "None"), ("shift", "Shift", "False"),
       ("num_streams", "Num Streams", "1")]),
-    ("clMultiply", "Multiply", "[TPU-Accelerated]",
+    ("clMultiply", "Multiply", "[GPU-Accelerated]",
      "clenabled_tpu.blocks.Multiply()", []),
-    ("clAdd", "Add", "[TPU-Accelerated]", "clenabled_tpu.blocks.Add()", []),
-    ("clSubtract", "Subtract", "[TPU-Accelerated]",
+    ("clAdd", "Add", "[GPU-Accelerated]", "clenabled_tpu.blocks.Add()", []),
+    ("clSubtract", "Subtract", "[GPU-Accelerated]",
      "clenabled_tpu.blocks.Subtract()", []),
-    ("clMultiplyConjugate", "Multiply Conjugate", "[TPU-Accelerated]",
+    ("clMultiplyConjugate", "Multiply Conjugate", "[GPU-Accelerated]",
      "clenabled_tpu.blocks.MultiplyConjugate()", []),
-    ("clComplexConjugate", "Complex Conjugate", "[TPU-Accelerated]",
+    ("clComplexConjugate", "Complex Conjugate", "[GPU-Accelerated]",
      "clenabled_tpu.blocks.ComplexConjugate()", []),
-    ("clMultConst", "Multiply Const", "[TPU-Accelerated]",
+    ("clMultConst", "Multiply Const", "[GPU-Accelerated]",
      "clenabled_tpu.blocks.MultiplyConst(${k})", [("k", "Constant", "1.0")]),
-    ("clAddConst", "Add Const", "[TPU-Accelerated]",
+    ("clAddConst", "Add Const", "[GPU-Accelerated]",
      "clenabled_tpu.blocks.AddConst(${k})", [("k", "Constant", "0.0")]),
-    ("clComplexToMag", "Complex To Mag", "[TPU-Accelerated]",
+    ("clComplexToMag", "Complex To Mag", "[GPU-Accelerated]",
      "clenabled_tpu.blocks.ComplexToMag()", []),
-    ("clComplexToArg", "Complex To Arg", "[TPU-Enabled]",
+    ("clComplexToArg", "Complex To Arg", "[GPU-Enabled]",
      "clenabled_tpu.blocks.ComplexToArg()", []),
-    ("clComplexToMagPhase", "Complex To Mag Phase", "[TPU-Enabled]",
+    ("clComplexToMagPhase", "Complex To Mag Phase", "[GPU-Enabled]",
      "clenabled_tpu.blocks.ComplexToMagPhase()", []),
-    ("clMagPhaseToComplex", "Mag Phase To Complex", "[TPU-Enabled]",
+    ("clMagPhaseToComplex", "Mag Phase To Complex", "[GPU-Enabled]",
      "clenabled_tpu.blocks.MagPhaseToComplex()", []),
-    ("clLog10", "Log10", "[TPU-Enabled]",
+    ("clLog10", "Log10", "[GPU-Enabled]",
      "clenabled_tpu.blocks.Log(nValue=${n}, kValue=${k})",
      [("n", "n (n*log10(x)+k)", "1.0"), ("k", "k", "0.0")]),
-    ("clLog", "Log", "[TPU-Enabled]",
+    ("clLog", "Log", "[GPU-Enabled]",
      "clenabled_tpu.blocks.Log(nValue=${n}, kValue=${k})",
      [("n", "n (n*log10(x)+k)", "1.0"), ("k", "k", "0.0")]),
-    ("clSNR", "SNR Helper", "[TPU-Enabled]",
+    ("clSNR", "SNR Helper", "[GPU-Enabled]",
      "clenabled_tpu.blocks.SNRHelper(nValue=${n}, kValue=${k})",
      [("n", "n", "10.0"), ("k", "k", "0.0")]),
-    ("clKernel1To1", "Custom Kernel 1:1", "[TPU-Enabled]",
+    ("clKernel1To1", "Custom Kernel 1:1", "[GPU-Enabled]",
      "clenabled_tpu.blocks.Kernel1To1(filename=${filename}, kernelFnName=${fnname})",
      [("filename", "Kernel File (.py)", "''"), ("fnname", "Function Name", "''")]),
-    ("clKernel2To1", "Custom Kernel 2:1", "[TPU-Enabled]",
+    ("clKernel2To1", "Custom Kernel 2:1", "[GPU-Enabled]",
      "clenabled_tpu.blocks.Kernel2To1(filename=${filename}, kernelFnName=${fnname})",
      [("filename", "Kernel File (.py)", "''"), ("fnname", "Function Name", "''")]),
-    ("clLowPassFilter", "Low Pass Filter", "[TPU-Accelerated]",
+    ("clLowPassFilter", "Low Pass Filter", "[GPU-Accelerated]",
      "clenabled_tpu.blocks.LowPassFilter(${decimation}, ${gain}, ${samp_rate}, ${cutoff_freq}, ${transition_width}, use_time=${use_time})",
      [("decimation", "Decimation", "1"), ("gain", "Gain", "1.0"),
       ("samp_rate", "Sample Rate", "samp_rate"), ("cutoff_freq", "Cutoff Freq", "100e3"),
       ("transition_width", "Transition Width", "50e3"),
       ("use_time", "Time Domain (vs OFA)", "False")]),
-    ("clHighPassFilter", "High Pass Filter", "[TPU-Accelerated]",
+    ("clHighPassFilter", "High Pass Filter", "[GPU-Accelerated]",
      "clenabled_tpu.blocks.HighPassFilter(${decimation}, ${gain}, ${samp_rate}, ${cutoff_freq}, ${transition_width}, use_time=${use_time})",
      [("decimation", "Decimation", "1"), ("gain", "Gain", "1.0"),
       ("samp_rate", "Sample Rate", "samp_rate"), ("cutoff_freq", "Cutoff Freq", "100e3"),
       ("transition_width", "Transition Width", "50e3"),
       ("use_time", "Time Domain", "False")]),
-    ("clBandPassFilter", "Band Pass Filter", "[TPU-Accelerated]",
+    ("clBandPassFilter", "Band Pass Filter", "[GPU-Accelerated]",
      "clenabled_tpu.blocks.BandPassFilter(${decimation}, ${gain}, ${samp_rate}, ${low_cutoff}, ${high_cutoff}, ${transition_width}, use_time=${use_time})",
      [("decimation", "Decimation", "1"), ("gain", "Gain", "1.0"),
       ("samp_rate", "Sample Rate", "samp_rate"), ("low_cutoff", "Low Cutoff", "100e3"),
       ("high_cutoff", "High Cutoff", "200e3"),
       ("transition_width", "Transition Width", "50e3"),
       ("use_time", "Time Domain", "False")]),
-    ("clBandRejectFilter", "Band Reject Filter", "[TPU-Accelerated]",
+    ("clBandRejectFilter", "Band Reject Filter", "[GPU-Accelerated]",
      "clenabled_tpu.blocks.BandRejectFilter(${decimation}, ${gain}, ${samp_rate}, ${low_cutoff}, ${high_cutoff}, ${transition_width}, use_time=${use_time})",
      [("decimation", "Decimation", "1"), ("gain", "Gain", "1.0"),
       ("samp_rate", "Sample Rate", "samp_rate"), ("low_cutoff", "Low Cutoff", "100e3"),
       ("high_cutoff", "High Cutoff", "200e3"),
       ("transition_width", "Transition Width", "50e3"),
       ("use_time", "Time Domain", "False")]),
-    ("clRootRaisedCosine", "RRC Filter", "[TPU-Accelerated]",
+    ("clRootRaisedCosine", "RRC Filter", "[GPU-Accelerated]",
      "clenabled_tpu.blocks.RootRaisedCosineFilter(${decimation}, ${gain}, ${samp_rate}, ${symbol_rate}, ${alpha}, ${ntaps}, use_time=${use_time})",
      [("decimation", "Decimation", "1"), ("gain", "Gain", "1.0"),
       ("samp_rate", "Sample Rate", "samp_rate"), ("symbol_rate", "Symbol Rate", "1e6"),
       ("alpha", "Alpha", "0.35"), ("ntaps", "Num Taps", "241"),
       ("use_time", "Time Domain", "False")]),
-    ("clFIRTapFilter", "FIR Tap Filter", "[TPU-Accelerated]",
+    ("clFIRTapFilter", "FIR Tap Filter", "[GPU-Accelerated]",
      "clenabled_tpu.blocks.FIRTapFilter(${decimation}, ${taps}, use_time=${use_time})",
      [("decimation", "Decimation", "1"), ("taps", "Taps", "[]"),
       ("use_time", "Time Domain", "False")]),
-    ("clComplexFilter", "Complex Tap Filter", "[TPU-Accelerated]",
+    ("clComplexFilter", "Complex Tap Filter", "[GPU-Accelerated]",
      "clenabled_tpu.blocks.ComplexFilter(${decimation}, ${taps}, use_time=${use_time})",
      [("decimation", "Decimation", "1"), ("taps", "Complex Taps", "[]"),
       ("use_time", "Time Domain", "True")]),
-    ("clPolyphaseChannelizer", "Polyphase Channelizer", "[TPU-Accelerated]",
+    ("clPolyphaseChannelizer", "Polyphase Channelizer", "[GPU-Accelerated]",
      "clenabled_tpu.blocks.PolyphaseChannelizer(${taps}, ${buf_items}, ${num_channels}, ${ninputs_per_iter}, ${ch_map})",
      [("taps", "Prototype Taps", "[]"), ("buf_items", "Buffer Items", "6000"),
       ("num_channels", "Num Channels", "16"),
       ("ninputs_per_iter", "Inputs Per Iteration", "16"),
       ("ch_map", "Channel Map", "list(range(16))")]),
-    ("clQuadratureDemod", "Quadrature Demod", "[TPU-Accelerated]",
+    ("clQuadratureDemod", "Quadrature Demod", "[GPU-Accelerated]",
      "clenabled_tpu.blocks.QuadratureDemod(${gain})",
      [("gain", "Gain", "1.0")]),
-    ("clCostasLoop", "Costas Loop", "[TPU-Enabled]",
-     "clenabled_tpu.blocks.CostasLoop(${loop_bw}, ${order}, planar=${planar}, chunked=${chunked}, scalar=${scalar})",
+    ("clCostasLoop", "Costas Loop", "[GPU-Enabled]",
+     "clenabled_tpu.blocks.CostasLoop(${loop_bw}, ${order}, planar=${planar}, chunked=${chunked})",
      [("loop_bw", "Loop Bandwidth", "0.02"), ("order", "Order (2 or 4)", "2"),
-      ("planar", "Planar (complex-free TPU path)", "True"),
-      ("chunked", "Speculative Chunked (multi-GSPS locked streams)", "False"),
-      ("scalar", "Scalar-Core Exact (15.5 MSPS)", "False")]),
-    ("clXCorrelate", "Cross Correlator (TD)", "[TPU-Accelerated]",
+      ("planar", "Planar (complex-free path)", "True"),
+      ("chunked", "Speculative Chunked (locked streams)", "False")]),
+    ("clXCorrelate", "Cross Correlator (TD)", "[GPU-Accelerated]",
      "clenabled_tpu.blocks.XCorrelate(${num_inputs}, signal_length=${signal_length}, max_search_index=${max_search}, decim_frames=${decim_frames})",
      [("num_inputs", "Num Inputs", "2"), ("signal_length", "Analysis Window", "8192"),
       ("max_search", "Max Search Lags", "512"),
       ("decim_frames", "Process 1 in N Frames", "4")]),
-    ("clxcorrelate_fft_vcf", "Cross Correlator (FD)", "[TPU-Accelerated]",
+    ("clxcorrelate_fft_vcf", "Cross Correlator (FD)", "[GPU-Accelerated]",
      "clenabled_tpu.blocks.XCorrelateFFTVCF(${fft_size}, ${num_inputs}, input_type=${input_type})",
      [("fft_size", "FFT Size", "2048"), ("num_inputs", "Num Inputs", "2"),
       ("input_type", "Input (1=spectra,2=time)", "1")]),
-    ("clXEngine", "X-Engine (FX Correlator)", "[TPU-Accelerated]",
+    ("clXEngine", "X-Engine (FX Correlator)", "[GPU-Accelerated]",
      "clenabled_tpu.blocks.XEngine(${data_type}, ${polarization}, ${num_inputs}, num_channels=${num_channels}, integration=${integration}, antenna_list=${antenna_list})",
      [("data_type", "Input (1=complex,5=IChar,6=Packed4)", "1"),
       ("polarization", "Polarizations", "2"), ("num_inputs", "Num Antennas", "4"),
@@ -137,7 +136,7 @@ BLOCKS = [
 # stream port is (label, dtype, multiplicity_expr|None) and a message port
 # is ("msg", port_name).  These make the descriptors actually loadable in
 # GNU Radio Companion (ports are required), with templates instantiating
-# real TPU blocks through gr_compat.wrap — the role of the reference's
+# real JAX blocks through gr_compat.wrap — the role of the reference's
 # pybind bindings (python/bindings/python_bindings.cc:29-49).
 IO = {
     "clSignalSource": ([], [("out", "complex", None)]),
@@ -256,9 +255,9 @@ def emit(block, outdir: str) -> str:
         lines += _port_lines(outs, "outputs")
     lines += [
         "documentation: |-",
-        f"  TPU-native equivalent of gr-clenabled's {bid} block.",
+        f"  JAX equivalent of gr-clenabled's {bid} block.",
         "  Instantiated inside GNU Radio through clenabled_tpu.gr_compat.wrap",
-        "  (the TPU does the math, GR does the stream plumbing).",
+        "  (the accelerator does the math, GR does the stream plumbing).",
         "  See clenabled_tpu/blocks and PARITY.md for semantics and",
         "  reference citations.",
         "",

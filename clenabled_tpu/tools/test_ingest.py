@@ -2,18 +2,18 @@
 
 The reference's sustained numbers are end-to-end through its pinned
 double-buffered host feed (lib/clXEngine_impl.cc:325-366); this tool
-measures the TPU equivalent for the fused flagship kernel and separates
-the three rates that bound it:
+measures the equivalent here for the planar flagship and separates the
+three rates that bound it:
 
   link   — raw host→device bandwidth for the frame arrays alone
-  device — the fused kernel consuming device-resident frames
+  device — the flagship step consuming device-resident frames
   e2e    — HostIngest pipeline: prefetch-threaded device_put feeding the
            kernel, wall-clocked around everything
 
 Sustained end-to-end throughput = min(link, device) when the feed and the
 compute overlap; a shortfall below that min is pipeline loss.  Narrow
 ingest (int8 = the reference's IChar format) quarters the link bytes per
-sample, which is why it is the production default for link-bound setups.
+sample, which is why it suits link-bound setups.
 
 Usage: python -m clenabled_tpu.tools.test_ingest [--cpu] [--steps N]
            [--samples-per-step LOG2] [--dtype f32|int8|both]
@@ -30,13 +30,13 @@ def _bench_dtype(in_dtype_name: str, n_log2: int, steps: int) -> None:
     import numpy as np
 
     from clenabled_tpu.pipelines import (FxPipelineConfig,
-                                         make_fx_pipeline_fused)
+                                         make_fx_pipeline_planar)
     from clenabled_tpu.streaming.ingest import HostIngest
 
     jnp_dtype = {"f32": np.float32, "int8": np.int8}[in_dtype_name]
     cfg = FxPipelineConfig(num_antennas=4, num_channels=16,
                            samples_per_step=1 << n_log2)
-    fn, (xr, xi, tr, ti) = make_fx_pipeline_fused(cfg, in_dtype=jnp_dtype)
+    fn, (xr, xi, tr, ti) = make_fx_pipeline_planar(cfg, in_dtype=jnp_dtype)
     a, n = xr.shape
     dev = jax.devices()[0]
 
@@ -51,40 +51,28 @@ def _bench_dtype(in_dtype_name: str, n_log2: int, steps: int) -> None:
                   for _ in range(4)]
     frame_bytes = frames[0][0].nbytes * 2
 
-    from clenabled_tpu.tools._timing import _fence, slope_per_call
-
-    # 1) link-only (slope: K1 vs K2 puts, fenced by a scalar readback —
-    # block_until_ready can silently no-op, BENCH_TPU.md "recalibration")
-    up = [jax.device_put(f, dev) for f in frames[0]]
-    _fence(up)
-    k1, k2 = max(2, steps // 4), max(6, steps)
-
-    def put_reps(k):
-        for i in range(k):
-            up = [jax.device_put(f, dev) for f in frames[i % len(frames)]]
-        _fence(up)
-
-    t0 = time.perf_counter(); put_reps(k1); t1 = time.perf_counter() - t0
-    t0 = time.perf_counter(); put_reps(k2); t2 = time.perf_counter() - t0
-    link_s = slope_per_call(t1, k1, t2, k2)
+    # 1) link-only: host clock around `steps` puts, ended by
+    # block_until_ready
+    jax.block_until_ready([jax.device_put(f, dev) for f in frames[0]])
+    t0 = time.perf_counter()
+    ups = [[jax.device_put(f, dev) for f in frames[i % len(frames)]]
+           for i in range(steps)]
+    jax.block_until_ready(ups)
+    link_s = (time.perf_counter() - t0) / steps
+    del ups
     link_gbs = frame_bytes / link_s / 1e9
     link_msps = n / link_s / 1e6
 
-    # 2) device-only (tail-chained steady state, slope-measured)
+    # 2) device-only: tail-chained steady state on device-resident frames
     dr = jax.device_put(frames[0][0], dev)
     di = jax.device_put(frames[0][1], dev)
-    out = fn(dr, di, tr, ti)
-    _fence(out)
-
-    def dev_reps(k):
-        ctr, cti = tr, ti
-        for _ in range(k):
-            fd, xre, xim, ctr, cti = fn(dr, di, ctr, cti)
-        _fence((fd, ctr))
-
-    t0 = time.perf_counter(); dev_reps(k1); t1 = time.perf_counter() - t0
-    t0 = time.perf_counter(); dev_reps(k2); t2 = time.perf_counter() - t0
-    dev_s = slope_per_call(t1, k1, t2, k2)
+    jax.block_until_ready(fn(dr, di, tr, ti))
+    t0 = time.perf_counter()
+    ctr, cti = tr, ti
+    for _ in range(steps):
+        fd, xre, xim, ctr, cti = fn(dr, di, ctr, cti)
+    jax.block_until_ready((fd, xre, xim, ctr, cti))
+    dev_s = (time.perf_counter() - t0) / steps
     dev_msps = n / dev_s / 1e6
 
     # 3) end-to-end through HostIngest
@@ -110,14 +98,13 @@ def _bench_dtype(in_dtype_name: str, n_log2: int, steps: int) -> None:
 
 
 def _bench_packed4(n_log2: int, steps: int, write_disk: bool) -> None:
-    """The link-bound PRODUCTION ingest story as one path (VERDICT r2
-    item 7 — the reference's whole reason for IChar/packed modes,
+    """The link-bound ingest story as one path (the reference's whole reason for IChar/packed modes,
     lib/clXEngine_impl.cc:325-366, 831-858):
 
         packed-4bit tagged frames (1 byte per complex sample — 1/8 the
         f32 wire bytes) → SynchronizedIngest tag alignment (incl. one
         injected mid-stream drop + re-sync) → HostIngest prefetch →
-        on-device gather-free nibble unpack → fused int8 flagship →
+        on-device gather-free nibble unpack → int8 flagship →
         X-Engine products → RollingFileWriter disk sidecar output.
     """
     import numpy as np
@@ -126,13 +113,13 @@ def _bench_packed4(n_log2: int, steps: int, write_disk: bool) -> None:
 
     from clenabled_tpu.dsp import xengine
     from clenabled_tpu.pipelines import (FxPipelineConfig,
-                                         make_fx_pipeline_fused)
+                                         make_fx_pipeline_planar)
     from clenabled_tpu.streaming.ingest import HostIngest
     from clenabled_tpu.streaming.sync import SynchronizedIngest, TaggedFrame
 
     cfg = FxPipelineConfig(num_antennas=4, num_channels=16,
                            samples_per_step=1 << n_log2)
-    fn, (xr, xi, tr, ti) = make_fx_pipeline_fused(cfg, in_dtype=np.int8)
+    fn, (xr, xi, tr, ti) = make_fx_pipeline_planar(cfg, in_dtype=np.int8)
     a, n = xr.shape
 
     rng = np.random.default_rng(0)
@@ -179,8 +166,7 @@ def _bench_packed4(n_log2: int, steps: int, write_disk: bool) -> None:
                      prefetch=2)
     ing.run(iter([pool[0]]))                 # warm the jit off the clock
 
-    # sustained-window instrumentation (round 5, VERDICT r4 item 7):
-    # per-step completion timestamps + time spent inside the disk writer,
+    # sustained-window instrumentation: per-step completion timestamps + time spent inside the disk writer,
     # so the report separates burst from sustained and shows the writer
     # never falls behind (writes are synchronous here — "backlog" shows
     # up as write stall time, not dropped frames)
@@ -238,9 +224,9 @@ def main() -> None:
     ap.add_argument("--dtype", choices=["f32", "int8", "both"],
                     default="both")
     ap.add_argument("--packed4", action="store_true",
-                    help="the production link-bound path: packed-4bit "
-                    "frames -> SynchronizedIngest -> HostIngest -> fused "
-                    "int8 flagship -> rolling disk")
+                    help="the link-bound path: packed-4bit frames -> "
+                    "SynchronizedIngest -> HostIngest -> int8 flagship -> "
+                    "rolling disk")
     ap.add_argument("--no-disk", action="store_true",
                     help="with --packed4: skip the RollingFileWriter leg")
     args = ap.parse_args()

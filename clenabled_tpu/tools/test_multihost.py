@@ -1,11 +1,11 @@
-"""Multi-host (DCN) validation — launches N processes with
-jax.distributed over localhost, builds a GLOBAL mesh spanning all
-processes' devices, and runs the sharded flagship pipeline one step.
+"""Multi-host validation — launches N processes with jax.distributed over
+localhost, builds a GLOBAL mesh spanning all processes' devices, and runs
+the sharded flagship pipeline one step.
 
 This exercises the true multi-host code path (global mesh construction,
-cross-process collectives over the distributed runtime) without TPU pod
-hardware — each process contributes virtual CPU devices.  On a real
-multi-host TPU slice the same code runs over ICI+DCN.
+cross-process collectives over the distributed runtime) without a
+cluster: each worker runs on the CPU backend with virtual devices, so no
+worker opens an accelerator.
 
     python -m clenabled_tpu.tools.test_multihost --procs 2 --devices-per-proc 4
 """
@@ -34,11 +34,11 @@ from clenabled_tpu.pipelines import FxPipelineConfig, make_sharded_fx_pipeline
 devs = jax.devices()  # global across processes
 mesh = Mesh(np.array(devs), ("shard",))
 cfg = FxPipelineConfig(num_antennas=4, num_channels=16, samples_per_step=512)
-fn, (x, hist) = make_sharded_fx_pipeline(mesh, cfg=cfg)
-fd, xmat, new_hist = fn(x, hist)
-jax.block_until_ready((fd, xmat, new_hist))
+fn, (xr, xi, hr, hi) = make_sharded_fx_pipeline(mesh, cfg=cfg)
+fd, xre, xim, nhr, nhi = fn(xr, xi, hr, hi)
+jax.block_until_ready((fd, xre, xim, nhr, nhi))
 print(f"proc {{jax.process_index()}}/{procs}: global devices="
-      f"{{len(devs)}} fd={{fd.shape}} xmat={{xmat.shape}} OK", flush=True)
+      f"{{len(devs)}} fd={{fd.shape}} xmat={{xre.shape}} OK", flush=True)
 """
 
 

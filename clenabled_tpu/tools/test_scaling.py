@@ -1,18 +1,57 @@
-"""Multi-chip scaling benchmark — the measurement the north star asks for
+"""Multi-device scaling benchmark — the measurement the north star asks for
 (≥80% scaling efficiency): runs the SHARDED flagship pipeline over meshes of
 1..N devices and reports weak-scaling throughput and efficiency.
 
-On this session's hardware only one real chip exists, so the default run
-uses the virtual CPU mesh (hardware-free path, like every sharding test);
-on a real multi-chip slice the same command measures ICI scaling:
+``--cpu`` uses a virtual CPU mesh (hardware-free, like every sharding
+test; its times measure XLA's CPU backend, not devices); on a host with
+several GPUs the same command measures scaling over their interconnect:
 
-    python -m clenabled_tpu.tools.test_scaling --devices 1 2 4 8
+    python -m clenabled_tpu.tools.test_scaling --devices 1 2 4
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+
+
+def _step_seconds(step, iterations: int) -> float:
+    """Seconds per step: step(k) runs k chained steps and returns their
+    last outputs; one warm-up step compiles, then a host clock runs
+    around ``iterations`` steps ended by block_until_ready."""
+    import jax
+
+    jax.block_until_ready(step(1))
+    t0 = time.perf_counter()
+    jax.block_until_ready(step(iterations))
+    return (time.perf_counter() - t0) / iterations
+
+
+def _setup(args):
+    """Apply --cpu (virtual multi-device CPU mesh) and the compile cache;
+    returns (jax, the mesh sizes that fit the available devices)."""
+    if args.cpu:
+        # the flag must be set before jax initializes its backends
+        import os
+
+        if "xla_force_host_platform_device_count" not in os.environ.get(
+                "XLA_FLAGS", ""):
+            os.environ["XLA_FLAGS"] = (
+                os.environ.get("XLA_FLAGS", "")
+                + f" --xla_force_host_platform_device_count="
+                f"{max(args.devices)}")
+    import jax
+
+    from clenabled_tpu.runtime.config import init_compile_cache
+
+    if args.cpu:
+        jax.config.update("jax_platforms", "cpu")
+    init_compile_cache()
+    avail = len(jax.devices())
+    sizes = [d for d in args.devices if d <= avail]
+    if not sizes:
+        raise SystemExit(f"no requested mesh size fits {avail} devices")
+    return jax, sizes
 
 
 def main() -> None:
@@ -30,8 +69,8 @@ def main() -> None:
     ap.add_argument("--channels", type=int, default=32)
     ap.add_argument("--integration", type=int, default=512)
     ap.add_argument("--ospfb", action="store_true",
-                    help="weak scaling of the time-sharded FUSED "
-                    "oversampled PFB (ring-ppermute OS_TAIL_LEN halo)")
+                    help="weak scaling of the time-sharded oversampled "
+                    "PFB (16 channels, R=8; ring-ppermute halo)")
     ap.add_argument("--xcorr", action="store_true",
                     help="weak scaling of the window-parallel sharded TD "
                     "xcorr (windows grow with the mesh; zero collectives)")
@@ -40,108 +79,70 @@ def main() -> None:
     ap.add_argument("--max-shift", type=int, default=512)
     args = ap.parse_args()
 
-    if args.cpu:
-        # virtual multi-device CPU mesh: the flag must be set before jax
-        # imports (harmless if the caller already exported it)
-        import os
-
-        if "xla_force_host_platform_device_count" not in os.environ.get(
-                "XLA_FLAGS", ""):
-            os.environ["XLA_FLAGS"] = (
-                os.environ.get("XLA_FLAGS", "")
-                + f" --xla_force_host_platform_device_count="
-                f"{max(args.devices)}")
-
+    jax, sizes = _setup(args)
     if args.xengine:
-        _xengine_scaling(args)
+        _xengine_scaling(args, jax, sizes)
         return
     if args.ospfb:
-        _ospfb_scaling(args)
+        _ospfb_scaling(args, jax, sizes)
         return
     if args.xcorr:
-        _xcorr_scaling(args)
+        _xcorr_scaling(args, jax, sizes)
         return
 
-    import jax
-
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
-
     import numpy as np
-    from jax.sharding import Mesh
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
     from clenabled_tpu.pipelines import (FxPipelineConfig,
                                          make_sharded_fx_pipeline)
 
-    avail = len(jax.devices())
-    sizes = [d for d in args.devices if d <= avail]
-    if not sizes:
-        raise SystemExit(f"no requested mesh size fits {avail} devices")
-
-    print(f"platform: {jax.devices()[0].platform} x{avail}   "
-          f"samples/chip/step: {args.samples_per_chip}")
+    print(f"platform: {jax.devices()[0].platform} x{len(jax.devices())}   "
+          f"samples/device/step: {args.samples_per_chip}")
     base_msps = None
     for d in sizes:
         mesh = Mesh(np.array(jax.devices()[:d]), ("shard",))
         cfg = FxPipelineConfig(num_antennas=4, num_channels=16,
                                samples_per_step=args.samples_per_chip)
-        fn, (x, hist) = make_sharded_fx_pipeline(mesh, cfg=cfg)
+        fn, (xr, xi, hr, hi) = make_sharded_fx_pipeline(mesh, cfg=cfg)
         rng = np.random.default_rng(0)
-        x = jax.device_put(
-            (rng.standard_normal(x.shape) + 1j * rng.standard_normal(x.shape)
-             ).astype(np.complex64))
-        from clenabled_tpu.tools._timing import _fence, slope_per_call
+        shard = NamedSharding(mesh, P(None, "shard"))
+        xr = jax.device_put(rng.standard_normal(xr.shape).astype(np.float32),
+                            shard)
+        xi = jax.device_put(rng.standard_normal(xi.shape).astype(np.float32),
+                            shard)
 
-        out = fn(x, hist)
-        _fence(out)
-
-        def reps(k):
-            h = hist
+        def step(k):
+            h = (hr, hi)
             for _ in range(k):
-                fd, xmat, h = fn(x, h)
-            _fence((fd, xmat, h))
+                out = fn(xr, xi, *h)
+                h = out[3:]
+            return out
 
-        # two-point slope removes the per-sync RTT (BENCH_TPU.md)
-        k1, k2 = max(2, args.iterations // 8), args.iterations
-        start = time.perf_counter(); reps(k1)
-        t1 = time.perf_counter() - start
-        start = time.perf_counter(); reps(k2)
-        t2 = time.perf_counter() - start
-        step_s = slope_per_call(t1, k1, t2, k2)
+        step_s = _step_seconds(step, args.iterations)
         total_msps = args.samples_per_chip * d / step_s / 1e6
-        per_chip = total_msps / d
+        per_dev = total_msps / d
         if base_msps is None:
-            base_msps = per_chip
-        eff = per_chip / base_msps * 100.0
+            base_msps = per_dev
+        eff = per_dev / base_msps * 100.0
         print(f"  {d} device(s): {total_msps:8.2f} MSPS total   "
-              f"{per_chip:8.2f} MSPS/chip   efficiency {eff:5.1f}%")
+              f"{per_dev:8.2f} MSPS/device   efficiency {eff:5.1f}%")
 
 
-
-def _xengine_scaling(args) -> None:
+def _xengine_scaling(args, jax, sizes) -> None:
     """Weak scaling of make_sharded_xengine_stacked: stations grow with
-    the mesh (S = stations_per_chip·D), so per-chip Gram work stays ~equal
-    while the all_to_all and the baseline count grow — the multi-chip
-    X-Engine deployment shape."""
-    import time
-
-    import jax
-
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
-
+    the mesh (S = stations_per_chip·D), so per-device Gram work stays
+    ~equal while the all_to_all and the baseline count grow — the
+    multi-device X-Engine deployment shape."""
+    import jax.numpy as jnp
     import numpy as np
     from jax.sharding import Mesh
 
     from clenabled_tpu.dsp import xengine as dsp_xengine
     from clenabled_tpu.sharding import make_sharded_xengine_stacked
-    from clenabled_tpu.tools._timing import _fence, slope_per_call
 
-    avail = len(jax.devices())
-    sizes = [d for d in args.devices if d <= avail]
     p, f, t = 2, args.channels, args.integration
-    print(f"platform: {jax.devices()[0].platform} x{avail}   "
-          f"stations/chip: {args.stations_per_chip}  pols: {p}  "
+    print(f"platform: {jax.devices()[0].platform} x{len(jax.devices())}   "
+          f"stations/device: {args.stations_per_chip}  pols: {p}  "
           f"channels: {f}  integration: {t}  (int8 ingest)")
     base = None
     for d in sizes:
@@ -150,58 +151,39 @@ def _xengine_scaling(args) -> None:
         init, apply = make_sharded_xengine_stacked(
             s, f, p, t, mesh, scale=1.0 / 127.0 ** 2)
         rng = np.random.default_rng(0)
-        import jax.numpy as jnp
-
         zr = jnp.asarray(rng.integers(-127, 128, (f, t, s * p), dtype=np.int8))
         zi = jnp.asarray(rng.integers(-127, 128, (f, t, s * p), dtype=np.int8))
-        st0 = init()
-        st, (out, ready) = apply(st0, (zr, zi))
-        _fence(out.re)
 
-        def reps(k):
-            st = st0
+        def step(k):
+            st = init()
             for _ in range(k):
                 st, (out, ready) = apply(st, (zr, zi))
-            _fence(out.re)
+            return out
 
-        k1, k2 = max(2, args.iterations // 8), args.iterations
-        t0 = time.perf_counter(); reps(k1); t1 = time.perf_counter() - t0
-        t0 = time.perf_counter(); reps(k2); t2 = time.perf_counter() - t0
-        step_s = slope_per_call(t1, k1, t2, k2)
+        step_s = _step_seconds(step, args.iterations)
         nb = dsp_xengine.num_baselines(s)
         useful = 8.0 * f * t * nb * p * p
         tflops = useful / step_s / 1e12
-        per_chip = tflops / d
+        per_dev = tflops / d
         if base is None:
-            base = per_chip
+            base = per_dev
         print(f"  {d} device(s), S={s}: {tflops:8.3f} TFLOP/s useful   "
-              f"{per_chip:8.3f} /chip   efficiency {per_chip/base*100:5.1f}%")
+              f"{per_dev:8.3f} /device   efficiency "
+              f"{per_dev / base * 100:5.1f}%")
 
 
-
-
-def _xcorr_scaling(args) -> None:
-    """Weak scaling of the window-parallel sharded TD xcorr (round 4):
-    analysis windows grow with the mesh, zero collectives in the hot
-    path — efficiency measures pure SPMD overhead."""
-    import time
-
-    import jax
-
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
-
+def _xcorr_scaling(args, jax, sizes) -> None:
+    """Weak scaling of the window-parallel sharded TD xcorr: analysis
+    windows grow with the mesh, zero collectives in the hot path —
+    efficiency measures pure SPMD overhead."""
     import numpy as np
     from jax.sharding import Mesh
 
     from clenabled_tpu.sharding import make_sharded_td_xcorr
-    from clenabled_tpu.tools._timing import _fence, slope_per_call
 
-    avail = len(jax.devices())
-    sizes = [d for d in args.devices if d <= avail]
     ns, L, ms = 2, args.signal_length, args.max_shift
-    print(f"platform: {jax.devices()[0].platform} x{avail}   "
-          f"TD xcorr windows/chip: {args.windows_per_chip}  "
+    print(f"platform: {jax.devices()[0].platform} x{len(jax.devices())}   "
+          f"TD xcorr windows/device: {args.windows_per_chip}  "
           f"signal: {L}  max_shift: {ms}")
     rng = np.random.default_rng(0)
     base = None
@@ -211,92 +193,63 @@ def _xcorr_scaling(args) -> None:
         b = args.windows_per_chip * d
         mags = jax.device_put(
             np.abs(rng.standard_normal((ns, b, L))).astype(np.float32))
-        res = apply(mags)
-        _fence(res.corr)
 
-        def reps(k):
+        def step(k):
             for _ in range(k):
                 res = apply(mags)
-            _fence(res.corr)
+            return res.corr
 
-        k1, k2 = max(2, args.iterations // 8), args.iterations
-        t0 = time.perf_counter(); reps(k1); t1 = time.perf_counter() - t0
-        t0 = time.perf_counter(); reps(k2); t2 = time.perf_counter() - t0
-        step_s = slope_per_call(t1, k1, t2, k2)
+        step_s = _step_seconds(step, args.iterations)
         total = b * L / step_s / 1e6
-        per_chip = total / d
+        per_dev = total / d
         if base is None:
-            base = per_chip
+            base = per_dev
         print(f"  {d} device(s), B={b}: {total:10.1f} MSPS of windowed "
-              f"stream   {per_chip:10.1f} /chip   efficiency "
-              f"{per_chip / base * 100:5.1f}%")
+              f"stream   {per_dev:10.1f} /device   efficiency "
+              f"{per_dev / base * 100:5.1f}%")
 
 
-def _ospfb_scaling(args) -> None:
-    """Weak scaling of the time-sharded fused oversampled PFB: per-chip
-    sample block fixed (samples grow with D), halo = one OS_TAIL_LEN ring
-    ppermute per step — communication is O(1) per chip while compute
-    scales, the canonical time-sharding shape."""
-    import time
-
-    import jax
-
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
-
+def _ospfb_scaling(args, jax, sizes) -> None:
+    """Weak scaling of the time-sharded oversampled PFB
+    (make_sharded_channelizer_planar, 16 channels, R=8): per-device sample
+    block fixed (samples grow with D), halo = one ring ppermute per step —
+    communication is O(1) per device while compute scales."""
     import numpy as np
     from jax.sharding import Mesh
 
     from clenabled_tpu.dsp import firdes, planar
-    from clenabled_tpu.sharding import (
-        make_sharded_channelizer_fused_oversampled)
-    from clenabled_tpu.tools._timing import _fence, slope_per_call
+    from clenabled_tpu.sharding import make_sharded_channelizer_planar
 
     m, r = 16, 8
     proto = firdes.low_pass(1.0, float(m), 0.5, 0.25)
-    proto = np.concatenate([proto, np.zeros((-len(proto)) % m, np.float32)])
-    avail = len(jax.devices())
-    sizes = [d for d in args.devices if d <= avail]
-    local = max(1024, args.samples_per_chip // 1024 * 1024)
-    print(f"platform: {jax.devices()[0].platform} x{avail}   "
-          f"fused OS-PFB 16ch/R=8, samples/chip/step: {local}")
-    if jax.default_backend() == "cpu":
-        print("  NOTE: on the CPU mesh the Pallas kernel runs in "
-              "INTERPRET mode — throughput/efficiency here measure "
-              "interpreter overhead under host-core contention, not ICI "
-              "scaling.  Use this mode on a real multi-chip slice; CPU "
-              "correctness is covered by tests/test_sharding.py.")
+    local = max(m, args.samples_per_chip // m * m)
+    print(f"platform: {jax.devices()[0].platform} x{len(jax.devices())}   "
+          f"OS-PFB 16ch/R=8, samples/device/step: {local}")
     rng = np.random.default_rng(0)
     base = None
     for d in sizes:
         mesh = Mesh(np.array(jax.devices()[:d]), ("shard",))
-        init_s, apply_s = make_sharded_channelizer_fused_oversampled(
-            proto, m, r, mesh)
+        init_s, apply_s = make_sharded_channelizer_planar(
+            proto, m, r, list(range(m)), mesh)
         n = d * local
         x = planar.PC(
             jax.device_put(rng.standard_normal(n).astype(np.float32)),
             jax.device_put(rng.standard_normal(n).astype(np.float32)))
-        st = init_s()
-        st, out = apply_s(st, x)
-        _fence((out.re,))
 
-        def reps(k):
-            s = st
+        def step(k):
+            s = init_s()
             for _ in range(k):
                 s, o = apply_s(s, x)
-            _fence((o.re,))
+            return o.re
 
-        k1, k2 = max(2, args.iterations // 8), args.iterations
-        t0 = time.perf_counter(); reps(k1); t1 = time.perf_counter() - t0
-        t0 = time.perf_counter(); reps(k2); t2 = time.perf_counter() - t0
-        step_s = slope_per_call(t1, k1, t2, k2)
+        step_s = _step_seconds(step, args.iterations)
         total = n / step_s / 1e6
-        per_chip = total / d
+        per_dev = total / d
         if base is None:
-            base = per_chip
+            base = per_dev
         print(f"  {d} device(s): {total:8.1f} MSPS total   "
-              f"{per_chip:8.1f} MSPS/chip   efficiency "
-              f"{per_chip / base * 100:5.1f}%")
+              f"{per_dev:8.1f} MSPS/device   efficiency "
+              f"{per_dev / base * 100:5.1f}%")
 
 
 if __name__ == "__main__":

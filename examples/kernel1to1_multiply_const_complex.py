@@ -1,6 +1,6 @@
 """Custom user kernel — the reference's
 examples/kernel1to1_multiply_const_complex.cl (a user OpenCL kernel
-scaling a complex stream by 3.0, loaded by clKernel1To1).  The TPU-native
+scaling a complex stream by 3.0, loaded by clKernel1To1).  Here the
 equivalent is this user JAX function, loaded by Kernel1To1 via the same
 (filename, kernelFnName) pair:
 

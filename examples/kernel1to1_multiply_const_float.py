@@ -1,6 +1,6 @@
 """Custom user kernel — the reference's
 examples/kernel1to1_multiply_const_float.cl (a user OpenCL kernel scaling
-a float stream by 3.0, loaded by clKernel1To1 in float mode).  TPU-native
+a float stream by 3.0, loaded by clKernel1To1 in float mode).  The
 equivalent: a user JAX function loaded by the same (filename,
 kernelFnName) pair:
 

@@ -1,5 +1,5 @@
 """Custom user kernel — the reference's examples/kernel1to1_sincos.cl
-(a user-supplied OpenCL kernel file loaded by clKernel1To1).  The TPU-native
+(a user-supplied OpenCL kernel file loaded by clKernel1To1).  Here the
 equivalent is a user JAX function in a Python file, loaded by Kernel1To1 via
 the same (filename, kernelFnName) pair, or passed directly as a callable.
 

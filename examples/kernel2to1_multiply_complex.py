@@ -1,6 +1,6 @@
 """Custom 2-input user kernel — the reference's
 examples/kernel2to1_multiply_complex.cl (a user OpenCL kernel computing
-c = a·b per sample, loaded by clKernel2To1).  The TPU-native equivalent is
+c = a·b per sample, loaded by clKernel2To1).  The equivalent here is
 a user JAX function of two streams in a Python file, loaded by Kernel2To1
 via the same (filename, kernelFnName) pair, or passed directly as a
 callable.

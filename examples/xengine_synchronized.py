@@ -6,7 +6,7 @@ with ``internal_synchronizer=True`` + IChar ingest + direct-to-disk
       → SynchronizedIngest  (consume tags until aligned; "sync" PDU;
                              drop detection + re-sync on the block grid)
       → XEngine block       (channel-major stacked Gram, IChar samples
-                             int8 all the way to the MXU)
+                             int8 all the way to the matmul)
       → RollingFileWriter   (binary matrices + JSON sidecar)
 
 Run: python examples/xengine_synchronized.py
@@ -52,7 +52,7 @@ def main():
         pipeline_integration=4,
         antenna_list=[f"ant{i}" for i in range(stations)],
     )
-    assert xe.channel_major   # the int8-to-MXU fast path
+    assert xe.channel_major   # the int8 stacked-Gram path
     g = Flowgraph()
     for s in range(stations):
         g.external_input(xe, s)

@@ -138,169 +138,94 @@ def test_oversampled_phase_split_paths_agree():
         np.testing.assert_array_equal(np.asarray(gi), wi)
 
 
-def test_fused_oversampled_streaming_matches_xla_on_delayed_stream():
-    """make_channelizer_fused_oversampled output == the XLA planar path fed
-    the same stream delayed by OS_TAIL_LEN − ntaps + 1 samples (the fused
-    kernel's fixed pipeline latency), across multiple frames."""
-    from clenabled_tpu.dsp import pallas_kernels, planar
+def _stream_planar(taps, m, r, ch_map, x, nframes):
+    """Run make_channelizer(planar=True) over ``nframes`` equal frames of
+    the complex stream x (history carried between frames)."""
+    from clenabled_tpu.dsp import planar
 
+    n = len(x) // nframes
+    init, apply = channelizer.make_channelizer(taps, m, r, ch_map,
+                                               planar=True)
+    st = init()
+    got = []
+    for i in range(nframes):
+        fr = planar.PC(np.real(x[i * n:(i + 1) * n]),
+                       np.imag(x[i * n:(i + 1) * n]))
+        st, y = apply(st, fr)
+        got.append(np.asarray(y.re) + 1j * np.asarray(y.im))
+    return st, np.concatenate(got, axis=0)
+
+
+def _oracle_stream(taps, m, r, ch_map, x):
+    """ref_channelize over the whole stream with zero initial history."""
+    xh = np.concatenate([np.zeros(len(taps) - 1), x]).astype(np.complex128)
+    return ref_channelize(xh, np.asarray(taps, np.float64), m, r, ch_map)
+
+
+def test_oversampled_streaming_matches_oracle():
+    """Oversampled (R < M) planar streaming channelizer with a channel
+    subset, carried across three frames, against the loop oracle on the
+    whole stream — the rotation phase is global across frames."""
     m, r = 16, 8
     taps = firdes.low_pass(1.0, float(m), 0.5, 0.25)
-    taps = np.concatenate([taps, np.zeros((-len(taps)) % m, np.float32)])
-    h = pallas_kernels.OS_TAIL_LEN
-    lag = h - len(taps) + 1
     ch_map = [0, 3, 7, 15]
-    n = 2048
-    x = cplx(3 * n)
-
-    init_f, apply_f = channelizer.make_channelizer_fused_oversampled(
-        taps, m, r, ch_map, interpret=True)
-    state = init_f()
-    got = []
-    for i in range(3):
-        fr = planar.PC(np.real(x[i * n : (i + 1) * n]),
-                       np.imag(x[i * n : (i + 1) * n]))
-        state, y = apply_f(state, fr)
-        got.append(np.asarray(y.re) + 1j * np.asarray(y.im))
-    got = np.concatenate(got, axis=0)
-
-    xd = np.concatenate([np.zeros(lag, np.complex64), x])[: 3 * n]
-    init_x, apply_x = channelizer.make_channelizer(taps, m, r, ch_map,
-                                                   planar=True)
-    sx = init_x()
-    want = []
-    for i in range(3):
-        fr = planar.PC(np.real(xd[i * n : (i + 1) * n]),
-                       np.imag(xd[i * n : (i + 1) * n]))
-        sx, y = apply_x(sx, fr)
-        want.append(np.asarray(y.re) + 1j * np.asarray(y.im))
-    want = np.concatenate(want, axis=0)
-    np.testing.assert_allclose(got, want, rtol=1e-3,
-                               atol=1e-3 * np.abs(want).max())
+    x = cplx(3 * 2048)
+    _, got = _stream_planar(taps, m, r, ch_map, x, 3)
+    want = _oracle_stream(taps, m, r, ch_map, x)
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-4 * np.abs(want).max())
 
 
-def test_fused_oversampled_support_matrix():
-    assert channelizer.fused_oversampled_supported(16, 8, 128)
-    assert channelizer.fused_oversampled_supported(16, 4, 128)
-    assert channelizer.fused_oversampled_supported(16, 2, 128)
-    # round 3: the (128/M) % L restriction removed — these now run fused
-    assert channelizer.fused_oversampled_supported(64, 16, 256)
-    assert channelizer.fused_oversampled_supported(32, 4, 160)
-    assert channelizer.fused_oversampled_supported(16, 1, 128)
-    assert not channelizer.fused_oversampled_supported(16, 16, 128)  # critical
-    assert not channelizer.fused_oversampled_supported(16, 12, 128)  # R∤M
-    assert not channelizer.fused_oversampled_supported(6, 3, 36)     # M∤128
+@pytest.mark.parametrize("m,r", [(16, 8), (16, 4), (16, 2)])
+def test_oversampled_configs_match_oracle(m, r):
+    """2×, 4× and 8× oversampling at 16 channels, one frame, all
+    channels, against the loop oracle."""
+    taps = firdes.low_pass(1.0, float(m), 0.5, 0.25)
+    x = cplx(1024)
+    _, got = _stream_planar(taps, m, r, list(range(m)), x, 1)
+    want = _oracle_stream(taps, m, r, list(range(m)), x)
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-4 * np.abs(want).max())
 
 
 @pytest.mark.parametrize("m,r", [(64, 16), (32, 4), (16, 1)])
-def test_fused_oversampled_generalized_lane_groups(m, r):
-    """Round-3 generalization: configs where L does not divide the 128/M
-    lane groups (phase of lane group k in row family f is (g·f+k) mod L).
-    Fused kernel == XLA planar path on the lag-delayed stream."""
-    from clenabled_tpu.dsp import pallas_kernels, planar
-
+def test_oversampled_wide_configs_streaming_match_oracle(m, r):
+    """Wider channel counts and deep oversampling (M=64/R=16, M=32/R=4,
+    M=16/R=1), two carried frames, against the loop oracle."""
     taps = firdes.low_pass(1.0, float(m), 0.5, 0.25)
-    taps = np.concatenate([taps, np.zeros((-len(taps)) % m, np.float32)])
-    lag = pallas_kernels.OS_TAIL_LEN - len(taps) + 1
-    n = 2048
-    x = cplx(2 * n)
-    init_f, apply_f = channelizer.make_channelizer_fused_oversampled(
-        taps, m, r, list(range(m)), interpret=True)
-    st = init_f()
-    got = []
-    for i in range(2):
-        fr = planar.PC(np.real(x[i * n:(i + 1) * n]),
-                       np.imag(x[i * n:(i + 1) * n]))
-        st, y = apply_f(st, fr)
-        got.append(np.asarray(y.re) + 1j * np.asarray(y.im))
-    got = np.concatenate(got)
-    xd = np.concatenate([np.zeros(lag, np.complex64), x])[: 2 * n]
-    init_x, apply_x = channelizer.make_channelizer(taps, m, r,
-                                                   list(range(m)),
-                                                   planar=True)
-    sx = init_x()
-    want = []
-    for i in range(2):
-        fr = planar.PC(np.real(xd[i * n:(i + 1) * n]),
-                       np.imag(xd[i * n:(i + 1) * n]))
-        sx, y = apply_x(sx, fr)
-        want.append(np.asarray(y.re) + 1j * np.asarray(y.im))
-    want = np.concatenate(want)
-    np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max())
+    x = cplx(2 * 2048)
+    _, got = _stream_planar(taps, m, r, list(range(m)), x, 2)
+    want = _oracle_stream(taps, m, r, list(range(m)), x)
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-4 * np.abs(want).max())
 
 
-def test_fused_oversampled_deep_halo_long_prototype():
-    """Round 3: os_tail_len grows the carried tail for production-size
-    prototypes (25 taps/branch at M=64 reaches ~1.6k samples — past the
-    default 1024 halo).  Fused == XLA oracle on the deeper-lag stream."""
-    from clenabled_tpu.dsp import pallas_kernels, planar
-
+def test_oversampled_deep_halo_long_prototype():
+    """A long prototype (more than 1024 taps at M=64, R=16): the carried
+    history is ntaps−1 samples and two carried frames match the loop
+    oracle on the whole stream."""
     m, r = 64, 16
-    taps = firdes.low_pass(1.0, float(m), 0.5, 0.08)  # long prototype
-    taps = np.concatenate([taps, np.zeros((-len(taps)) % m, np.float32)])
-    assert len(taps) > 1024  # past the default halo
-    h = pallas_kernels.os_tail_len(m, r, len(taps))
-    assert h > pallas_kernels.OS_TAIL_LEN
-    assert channelizer.fused_oversampled_supported(m, r, len(taps))
-    # prototypes whose banded consts exceed Mosaic's scoped-VMEM budget
-    # are REJECTED up front (round 5: nq=32 at this (m, r) fails the
-    # real chip's AOT compile with a scoped OOM — interpret mode alone
-    # never caught it)
-    assert not channelizer.fused_oversampled_supported(m, r, 3904)
-    lag = h - len(taps) + 1
-    n = 4096
-    x = cplx(2 * n)
-    init_f, apply_f = channelizer.make_channelizer_fused_oversampled(
-        taps, m, r, list(range(m)), interpret=True)
-    st = init_f()
-    assert st[0].shape == (h,)
-    got = []
-    for i in range(2):
-        fr = planar.PC(np.real(x[i * n:(i + 1) * n]),
-                       np.imag(x[i * n:(i + 1) * n]))
-        st, y = apply_f(st, fr)
-        got.append(np.asarray(y.re) + 1j * np.asarray(y.im))
-    got = np.concatenate(got)
-    xd = np.concatenate([np.zeros(lag, np.complex64), x])[: 2 * n]
-    init_x, apply_x = channelizer.make_channelizer(taps, m, r,
-                                                   list(range(m)),
-                                                   planar=True)
-    sx = init_x()
-    want = []
-    for i in range(2):
-        fr = planar.PC(np.real(xd[i * n:(i + 1) * n]),
-                       np.imag(xd[i * n:(i + 1) * n]))
-        sx, y = apply_x(sx, fr)
-        want.append(np.asarray(y.re) + 1j * np.asarray(y.im))
-    want = np.concatenate(want)
-    np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max())
+    taps = firdes.low_pass(1.0, float(m), 0.5, 0.08)
+    assert len(taps) > 1024
+    x = cplx(2 * 4096)
+    st, got = _stream_planar(taps, m, r, list(range(m)), x, 2)
+    assert st[0].shape == (len(taps) - 1,)
+    np.testing.assert_array_equal(np.asarray(st[0]),
+                                  np.real(x[-(len(taps) - 1):]))
+    want = _oracle_stream(taps, m, r, list(range(m)), x)
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-4 * np.abs(want).max())
 
 
-def test_fused_oversampled_deep_window_matches_fori():
-    """Round 5: the deep OS-PFB branch stage's im2col window strategy
-    (default for nq > 8) must match the legacy fori path to accumulation-
-    order tolerance."""
-    from clenabled_tpu.dsp import pallas_kernels
-
+def test_oversampled_deep_prototype_streaming_equals_oneshot():
+    """A deeper prototype (transition 0.04 at M=64, R=16): two carried
+    planar frames equal one complex64 pass over the whole stream."""
     m, r = 64, 16
     taps = firdes.low_pass(1.0, float(m), 0.5, 0.04)
-    taps = np.concatenate([taps, np.zeros((-len(taps)) % m, np.float32)])
-    taps_rm, ntaps = channelizer._pfb_constants(taps, m, r)
-    h = pallas_kernels.os_tail_len(m, r, ntaps)
-    rng = np.random.default_rng(3)
-    n = 4096
-    xr = rng.standard_normal(n).astype(np.float32)
-    xi = rng.standard_normal(n).astype(np.float32)
-    tr = rng.standard_normal(h).astype(np.float32)
-    ti = rng.standard_normal(h).astype(np.float32)
-    outs = {}
-    for strat in ("window", "fori"):
-        zr, zi = pallas_kernels.pfb_oversampled_fused(
-            xr, xi, tr, ti, np.asarray(taps_rm), m, r,
-            tile_rows=h // 128, interpret=True, deep_strategy=strat)
-        outs[strat] = (np.asarray(zr), np.asarray(zi))
-    scale = np.abs(outs["fori"][0]).max()
-    np.testing.assert_allclose(outs["window"][0], outs["fori"][0],
-                               rtol=1e-5, atol=1e-5 * scale)
-    np.testing.assert_allclose(outs["window"][1], outs["fori"][1],
-                               rtol=1e-5, atol=1e-5 * scale)
+    x = cplx(2 * 4096)
+    _, got = _stream_planar(taps, m, r, list(range(m)), x, 2)
+    xh = np.concatenate([np.zeros(len(taps) - 1, np.complex64), x])
+    want = np.asarray(channelizer.polyphase_channelize(
+        xh, taps, m, r, list(range(m))))
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-5 * np.abs(want).max())

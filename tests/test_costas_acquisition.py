@@ -1,4 +1,4 @@
-"""Chunked-Costas ACQUISITION behavior (VERDICT r2 item 5): the round-2
+"""Chunked-Costas ACQUISITION behavior: the chunked loop's
 certificate semantics were specified for locked streams only; these tests
 measure cold-start and lock-loss behavior — how many frames until the
 certificate passes, how large the pre-lock divergence is, and that the

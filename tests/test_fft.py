@@ -3,6 +3,7 @@ block's three special cases (lib/clFFT_impl.cc:544-630): forward+shift,
 reverse+shift-on-load, and real-input hermitian mirror."""
 
 import numpy as np
+import pytest
 
 from clenabled_tpu.dsp import fft as clfft
 from clenabled_tpu.dsp import window as win
@@ -91,44 +92,57 @@ def test_window_length_validated():
         clfft.fft(cplx(2, 128), clfft.FORWARD, window=win.hamming(64))
 
 
-def test_fft_stream_planar_pallas_route_matches_xla():
-    """Round-4 fused-FFT routing: fft_stream_planar(use_pallas=True) must
-    match the XLA path for every direction/shift/window combination the
-    block layer uses (interpret mode)."""
+def _np_fft_stream(x, size, direction, window, shift):
+    """float64 NumPy oracle of the reference block's stream semantics."""
+    v = np.asarray(x, np.complex128).reshape(-1, size)
+    h = size // 2
+    if direction == clfft.FORWARD:
+        if window is not None:
+            v = v * np.asarray(window)
+        y = np.fft.fft(v, axis=-1)
+        if shift:
+            y = np.fft.fftshift(y, axes=-1)
+    else:
+        if shift:
+            v = np.concatenate([v[:, h:], v[:, :h]], axis=-1)
+        if window is not None:
+            v = v * np.asarray(window)
+        y = np.fft.ifft(v, axis=-1) * size
+    return y.reshape(-1)
+
+
+@pytest.mark.parametrize("size", [1024, 2048, 4096])
+def test_fft_stream_planar_matches_numpy(size):
+    """fft_stream_planar (two-stage DFT matmuls) against the NumPy oracle
+    for every direction/shift/window combination the block layer uses."""
     import jax.numpy as jnp
 
-    from clenabled_tpu.dsp import fft as dsp_fft
-    from clenabled_tpu.dsp import planar, window as win_mod
+    from clenabled_tpu.dsp import planar
 
     rng = np.random.default_rng(13)
-    size = 1024                       # n2 = 8, the smallest routed size
     n = size * 6
-    x = planar.PC(jnp.asarray(rng.standard_normal(n), jnp.float32),
-                  jnp.asarray(rng.standard_normal(n), jnp.float32))
-    w = win_mod.blackman_harris(size)
-    for direction in (dsp_fft.FORWARD, dsp_fft.REVERSE):
+    xr = rng.standard_normal(n).astype(np.float32)
+    xi = rng.standard_normal(n).astype(np.float32)
+    x = planar.PC(jnp.asarray(xr), jnp.asarray(xi))
+    w = win.blackman_harris(size)
+    for direction in (clfft.FORWARD, clfft.REVERSE):
         for shift in (False, True):
             for window in (None, w):
-                got = dsp_fft.fft_stream_planar(
-                    x, size, direction=direction, window=window,
-                    shift=shift, use_pallas=True)
-                want = dsp_fft.fft_stream_planar(
-                    x, size, direction=direction, window=window,
-                    shift=shift, use_pallas=False)
-                scale = float(np.abs(np.asarray(want.re)).max())
+                got = clfft.fft_stream_planar(
+                    x, size, direction=direction, window=window, shift=shift)
+                want = _np_fft_stream(xr + 1j * xi, size, direction, window,
+                                      shift)
+                scale = float(np.abs(want).max())
                 np.testing.assert_allclose(
-                    np.asarray(got.re), np.asarray(want.re),
+                    np.asarray(got.re) + 1j * np.asarray(got.im), want,
                     rtol=1e-4, atol=1e-4 * scale,
                     err_msg=f"dir={direction} shift={shift} "
                             f"win={window is not None}")
-                np.testing.assert_allclose(
-                    np.asarray(got.im), np.asarray(want.im),
-                    rtol=1e-4, atol=1e-4 * scale)
 
 
-def test_fft_block_use_pallas_kwarg():
-    """The Fft block's opt-in fused-kernel surface matches the default
-    XLA route on planar streams (interpret mode)."""
+def test_fft_block_planar_stream_matches_numpy():
+    """The Fft block on a planar stream (shifted forward transform)
+    against the NumPy oracle."""
     import jax.numpy as jnp
 
     from clenabled_tpu import blocks
@@ -136,14 +150,12 @@ def test_fft_block_use_pallas_kwarg():
 
     rng = np.random.default_rng(3)
     n = 1024 * 4
-    x = planar.PC(jnp.asarray(rng.standard_normal(n), jnp.float32),
-                  jnp.asarray(rng.standard_normal(n), jnp.float32))
-    b0 = blocks.Fft(1024)
-    b1 = blocks.Fft(1024, use_pallas=True)
-    _, (want,), _ = b0.apply(b0.init_state(), [x])
-    _, (got,), _ = b1.apply(b1.init_state(), [x])
-    scale = float(np.abs(np.asarray(want.re)).max())
-    np.testing.assert_allclose(np.asarray(got.re), np.asarray(want.re),
-                               rtol=1e-4, atol=1e-4 * scale)
-    np.testing.assert_allclose(np.asarray(got.im), np.asarray(want.im),
-                               rtol=1e-4, atol=1e-4 * scale)
+    xr = rng.standard_normal(n).astype(np.float32)
+    xi = rng.standard_normal(n).astype(np.float32)
+    b = blocks.Fft(1024, shift=True)
+    _, (got,), _ = b.apply(b.init_state(),
+                           [planar.PC(jnp.asarray(xr), jnp.asarray(xi))])
+    want = _np_fft_stream(xr + 1j * xi, 1024, clfft.FORWARD, None, True)
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(np.asarray(got.re) + 1j * np.asarray(got.im),
+                               want, rtol=1e-4, atol=1e-4 * scale)

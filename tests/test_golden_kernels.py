@@ -1,5 +1,5 @@
 """Golden parity for the reference's GENERATED (OpenCL kernel-string)
-semantics — round 4, VERDICT r3 item 1.  The vectors in
+semantics.  The vectors in
 golden/kernels_golden.json come from tests/golden_gen/gen3.cc, a cited
 host-loop transcription of the kernel strings the reference builds at
 runtime (PFB commutator/rotation/ch_map, the three clFFT shift/hermitian

@@ -1,5 +1,5 @@
 """Golden parity vs the REFERENCE'S OWN C++ for streaming/numeric
-semantics (VERDICT r2 item 4): overlap-add tail carry across filter()
+semantics: overlap-add tail carry across filter()
 calls, the Costas recurrence trajectory at both orders, quad-demod vs
 fast_atan2f (quantifying the LUT-vs-arctan2 delta), and the short-dtype
 FIR rounding.  Vectors in tests/golden/streaming_golden.json are produced

@@ -1,4 +1,4 @@
-"""REAL GNU Radio integration (VERDICT r2 item 6): runs the gr_compat
+"""REAL GNU Radio integration: runs the gr_compat
 adapter inside a stock ``gnuradio`` top_block.  Auto-skips when GR is not
 installed (it is not installable in this build image) — the day an
 install appears, proof is ``pytest -k gr_real``.  Until then the adapter
@@ -19,10 +19,10 @@ from clenabled_tpu import blocks, gr_compat  # noqa: E402
 from clenabled_tpu.dsp import firdes  # noqa: E402
 
 
-def _run_top_block(src_data, tpu_block, sink_ctor):
+def _run_top_block(src_data, block, sink_ctor):
     tb = gr.top_block()
     src = gr_blocks.vector_source_c(src_data.tolist(), False)
-    wrapped = gr_compat.wrap(tpu_block)
+    wrapped = gr_compat.wrap(block)
     sink = sink_ctor()
     tb.connect(src, wrapped)
     tb.connect(wrapped, sink)

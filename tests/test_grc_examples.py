@@ -1,6 +1,6 @@
 """The example flowgraph corpus (examples/grc/*.grc) must be coherent:
 every file parses, every connection resolves to declared blocks, and every
-clenabled_tpu_* block instantiates a REAL wrapped TPU block by rendering
+clenabled_tpu_* block instantiates a REAL wrapped JAX block by rendering
 its grc/*.block.yml make template with the flowgraph's own parameter
 values through the fake-gr adapter (the same role the reference's
 examples/test_flowgraphs/*.grc corpus plays for its pybind bindings)."""
@@ -90,7 +90,7 @@ def _render_make(yml: dict, grc_params: dict, ns: dict):
 
 
 def test_corpus_exists_and_is_large_enough():
-    """VERDICT r4: the reference ships 16 demo + 19 per-block flowgraphs;
+    """The reference ships 16 demo + 19 per-block flowgraphs;
     the corpus must cover at least 12 mirrors plus the clLog descriptor."""
     assert len(GRC_FILES) >= 12, [os.path.basename(p) for p in GRC_FILES]
     assert len(glob.glob(os.path.join(YML_DIR, "*.block.yml"))) >= 31
@@ -126,30 +126,30 @@ def test_tpu_blocks_instantiate_from_descriptors(path, fake_gr,
     with open(path) as f:
         doc = yaml.safe_load(f)
     ns = _eval_variables(doc)
-    tpu_blocks = {}
-    n_tpu = 0
+    cl_blocks = {}
+    n_cl = 0
     for b in doc["blocks"]:
         if not b["id"].startswith("clenabled_tpu_"):
             continue
         yml = _load_yml(b["id"])
         g = _render_make(yml, b["parameters"], ns)
         assert hasattr(g, "general_work"), b["id"]
-        tpu_blocks[b["name"]] = (g, yml)
-        n_tpu += 1
-    assert n_tpu >= 1, "corpus flowgraph without any TPU block"
+        cl_blocks[b["name"]] = (g, yml)
+        n_cl += 1
+    assert n_cl >= 1, "corpus flowgraph without any clenabled_tpu block"
 
     # stream/message connection indices must fit the instantiated
     # signatures and registered message ports
     for src, sport, dst, dport in doc["connections"]:
-        if src in tpu_blocks and str(sport).isdigit():
-            g, yml = tpu_blocks[src]
+        if src in cl_blocks and str(sport).isdigit():
+            g, yml = cl_blocks[src]
             assert int(sport) < len(g._out_sig), \
                 f"{src} out port {sport} exceeds signature"
-        if src in tpu_blocks and not str(sport).isdigit():
-            g, yml = tpu_blocks[src]
+        if src in cl_blocks and not str(sport).isdigit():
+            g, yml = cl_blocks[src]
             assert ("sym", sport) in g.registered_ports, \
                 f"{src} message port {sport} not registered"
-        if dst in tpu_blocks and str(dport).isdigit():
-            g, yml = tpu_blocks[dst]
+        if dst in cl_blocks and str(dport).isdigit():
+            g, yml = cl_blocks[dst]
             assert int(dport) < len(g._in_sig), \
                 f"{dst} in port {dport} exceeds signature"

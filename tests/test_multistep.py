@@ -1,7 +1,6 @@
 """steps_per_dispatch: K frames per device call via a device-side
-lax.scan over the step closure (VERDICT r2 item 2 — the block API must be
-device-bound, not dispatch-bound, at the reference's default 8192-sample
-frames).  Per-frame semantics must be EXACT: states thread through the
+lax.scan over the step closure (the block API must not pay one dispatch
+per frame at the reference's default 8192-sample frames).  Per-frame semantics must be EXACT: states thread through the
 scan identically to K separate step() calls."""
 
 import numpy as np
@@ -231,7 +230,7 @@ def test_default_auto_dispatch_contract():
 
 
 def test_auto_dispatch_respects_declared_feed_rank():
-    """ADVICE r4: a block whose per-frame feed is legitimately multi-dim
+    """A block whose per-frame feed is legitimately multi-dim
     declares ``in_rank``; a rank-matching feed whose LEADING dim happens
     to equal K must run as ONE frame, not be scanned as K frames."""
     from fractions import Fraction

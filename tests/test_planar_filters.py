@@ -50,44 +50,41 @@ def test_planar_td_xcorr_matches():
     np.testing.assert_array_equal(np.asarray(got.lag), np.asarray(want.lag))
 
 
-def test_planar_fir_pallas_streaming():
+def test_planar_fir_streaming_matches_complex():
+    """The planar TD FIR, carried over two frames, equals the complex64
+    FIR on the same stream."""
     from clenabled_tpu.dsp import fir_filter as ff
 
     taps = firdes.low_pass(1.0, 1e6, 100e3, 50e3)
     n = 128 * 64
     ic, ac = ff.make_fir_filter(taps)
-    ip, ap = ff.make_fir_filter_planar(taps, tile_rows=8, interpret=True)
+    ip, ap = ff.make_fir_filter_planar_xla(taps)
     sc, sp = ic(), ip()
     for _ in range(2):
         x = (RNG.standard_normal(n) + 1j * RNG.standard_normal(n)).astype(
             np.complex64)
         sc, yc = ac(sc, x)
         sp, y = ap(sp, planar.from_complex(x))
-        yr, yi = y.re, y.im
-        np.testing.assert_allclose(np.asarray(yr) + 1j * np.asarray(yi),
+        np.testing.assert_allclose(np.asarray(y.re) + 1j * np.asarray(y.im),
                                    np.asarray(yc), rtol=1e-4, atol=1e-4)
 
 
-def test_ofs_single_quantum_frame():
-    """Round-3 bug fix: a frame of EXACTLY one kernel quantum (single-tile
-    grid) used to fail — the untaken prefetch branch's slice indexed past
-    the input and both interpret-mode discharge and Mosaic check untaken
-    branches statically.  Must now run and match the convolution."""
-    import jax.numpy as jnp
-
+def test_planar_ofa_single_quantum_frame():
+    """A frame of exactly one quantum (a single overlap-add chunk), then a
+    second one carrying the tail, matches the direct convolution."""
     from clenabled_tpu.dsp import fft_filter as ff
-    from clenabled_tpu.dsp import firdes, pallas_kernels as pk
 
     taps = firdes.low_pass(1.0, 1e6, 100e3, 20e3)
-    plan = pk.OfsPlan(taps)
-    plan.decimation = 1
+    init, apply, plan = ff.make_fft_filter_planar(taps)
     q = ff.frame_quantum(plan)
+    assert q == plan.nsamples
     rng = np.random.default_rng(1)
-    x = rng.standard_normal(q).astype(np.float32)
-    xi = rng.standard_normal(q).astype(np.float32)
-    tr = jnp.zeros((plan.tail_len,), jnp.float32)
-    yr, yi = pk.ofs_filter_planar(jnp.asarray(x), jnp.asarray(xi), tr, tr,
-                                  plan, interpret=True)
-    want = np.convolve(x + 1j * xi, taps)[:q]
-    got = np.asarray(yr) + 1j * np.asarray(yi)
-    np.testing.assert_allclose(got, want, atol=1e-4)
+    x = (rng.standard_normal(2 * q)
+         + 1j * rng.standard_normal(2 * q)).astype(np.complex64)
+    st = init()
+    got = []
+    for k in range(2):
+        st, y = apply(st, planar.from_complex(x[k * q:(k + 1) * q]))
+        got.append(np.asarray(y.re) + 1j * np.asarray(y.im))
+    want = np.convolve(x, taps)[:2 * q]
+    np.testing.assert_allclose(np.concatenate(got), want, atol=1e-4)

@@ -4,6 +4,7 @@ demod history, Costas loop recurrence vs a numpy reference loop)."""
 import math
 
 import numpy as np
+import pytest
 
 from clenabled_tpu.dsp import demod, siggen
 
@@ -194,52 +195,50 @@ def test_costas_chunked_validates_frame():
                           np.zeros(1000, np.float32)))
 
 
-def test_qdemod_fused_kernel_matches_xla():
-    """Round-4 Pallas qdemod (lane-roll shift + SMEM cross-tile carry):
-    matches the XLA form to the in-kernel polynomial atan2's ~1e-5 rad
-    envelope, including the carried-sample seam and multi-tile carries."""
+@pytest.mark.parametrize("n", [1023, 1024, 4096, 4097])
+def test_qdemod_planar_streaming_matches_numpy(n):
+    """Planar quadrature demod over two carried frames whose lengths sit
+    on both sides of 1024-sample boundaries, against the float64 NumPy
+    formula on the whole stream (the carried sample makes the seam
+    continuous)."""
     import jax.numpy as jnp
 
-    from clenabled_tpu.dsp import demod, pallas_kernels, planar
+    from clenabled_tpu.dsp import planar
 
     rng = np.random.default_rng(7)
-    n = 4096                       # rows=32, tile 8 → 4 tiles in interpret
-    xr = rng.standard_normal(n).astype(np.float32)
-    xi = rng.standard_normal(n).astype(np.float32)
-    last = planar.PC(jnp.asarray([0.3], jnp.float32),
-                     jnp.asarray([-0.7], jnp.float32))
-    want, nl = demod.quadrature_demod_planar(
-        planar.PC(jnp.asarray(xr), jnp.asarray(xi)), 2.5, last,
-        use_pallas=False)
-    got = pallas_kernels.qdemod_fused(
-        jnp.asarray(xr), jnp.asarray(xi), last.re[0], last.im[0], 2.5,
-        tile_rows=8, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=1e-4, atol=5e-5)
-    # and through the auto-routing wrapper (forced on)
-    got2, nl2 = demod.quadrature_demod_planar(
-        planar.PC(jnp.asarray(xr), jnp.asarray(xi)), 2.5, last,
-        use_pallas=True)
-    np.testing.assert_allclose(np.asarray(got2), np.asarray(want),
-                               rtol=1e-4, atol=5e-5)
-    np.testing.assert_array_equal(np.asarray(nl2.re), np.asarray(nl.re))
+    x = (rng.standard_normal(2 * n)
+         + 1j * rng.standard_normal(2 * n)).astype(np.complex64)
+    last0 = np.complex64(0.3 - 0.7j)
+    last = planar.PC(jnp.asarray([last0.real]), jnp.asarray([last0.imag]))
+    got = []
+    for k in range(2):
+        fr = x[k * n:(k + 1) * n]
+        y, last = demod.quadrature_demod_planar(
+            planar.PC(jnp.asarray(fr.real), jnp.asarray(fr.imag)), 2.5, last)
+        got.append(np.asarray(y))
+    xs = np.concatenate([[last0], x]).astype(np.complex128)
+    prod = xs[1:] * np.conj(xs[:-1])
+    want = 2.5 * np.arctan2(prod.imag, prod.real)
+    np.testing.assert_allclose(np.concatenate(got), want, rtol=1e-5,
+                               atol=2e-5)
+    assert complex(np.asarray(last.re)[0], np.asarray(last.im)[0]) == x[-1]
 
 
 def test_qdemod_planar_outconcat_matches_reference_form():
-    """The round-4 sliced-views restructuring must equal the original
-    input-concat formulation exactly (it is the same arithmetic on the
-    same values, just without materialized shifted copies)."""
+    """The sliced-views form must equal the input-concat formulation
+    exactly (it is the same arithmetic on the same values, just without
+    materialized shifted copies)."""
     import jax.numpy as jnp
 
     from clenabled_tpu.dsp import demod, planar
 
     rng = np.random.default_rng(8)
-    n = 777                        # odd length, no kernel route
+    n = 777                        # odd length
     x = planar.PC(jnp.asarray(rng.standard_normal(n), jnp.float32),
                   jnp.asarray(rng.standard_normal(n), jnp.float32))
     last = planar.PC(jnp.asarray([0.1], jnp.float32),
                      jnp.asarray([0.2], jnp.float32))
-    got, _ = demod.quadrature_demod_planar(x, 1.5, last, use_pallas=False)
+    got, _ = demod.quadrature_demod_planar(x, 1.5, last)
     pr = jnp.concatenate([last.re, x.re[:-1]])
     pi = jnp.concatenate([last.im, x.im[:-1]])
     prod = planar.mul_conj(x, planar.PC(pr, pi))
@@ -247,63 +246,46 @@ def test_qdemod_planar_outconcat_matches_reference_form():
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
-def test_costas_scalar_matches_scan_exact_mode():
-    """Round 5: the scalar-core Costas kernel runs the SAME exact
-    recurrence as the lax.scan form — locked-loop trajectories agree to
-    f32 rounding (1-ulp polynomial sincos), state carries across frames,
-    and the block-level scalar=True option wires it up."""
+def test_costas_planar_matches_reference_recurrence_across_frames():
+    """The planar lax.scan Costas loop, carried over two frames, against
+    the NumPy transcription of the reference recurrence on the whole
+    stream, for both loop orders; the block wires the same loop."""
     import jax.numpy as jnp
 
     from clenabled_tpu import blocks
-    from clenabled_tpu.dsp import demod, pallas_kernels, planar
+    from clenabled_tpu.dsp import planar
 
     rng = np.random.default_rng(9)
-    n = 4096
-    t = np.arange(n)
-    sig = (np.exp(1j * (0.02 * t + 0.3))
-           * np.where(rng.random(n) > 0.5, 1, -1))
-    sig = sig + 0.01 * (rng.standard_normal(n)
-                        + 1j * rng.standard_normal(n))
-    xr = jnp.asarray(sig.real.astype(np.float32))
-    xi = jnp.asarray(sig.imag.astype(np.float32))
-
+    n = 1024
+    bits = rng.integers(0, 2, n) * 2 - 1
+    x = (bits * np.exp(1j * 0.3)).astype(np.complex64)
     for order in (2, 4):
-        run_scan = demod.make_costas_loop_planar(0.02, order)
-        run_scal = demod.make_costas_loop_scalar(0.02, order, chunk=1024)
-        st_a, st_b = demod.costas_init(), demod.costas_init()
-        # two frames: state must carry across the frame seam identically
+        run = demod.make_costas_loop_planar(0.02, order)
+        st = demod.costas_init()
+        got = []
         for lo, hi in ((0, n // 2), (n // 2, n)):
-            fr = planar.PC(xr[lo:hi], xi[lo:hi])
-            st_a, out_a = run_scan(st_a, fr)
-            st_b, out_b = run_scal(st_b, fr)
-            np.testing.assert_allclose(np.asarray(out_b.re),
-                                       np.asarray(out_a.re), atol=5e-6)
-            np.testing.assert_allclose(np.asarray(out_b.im),
-                                       np.asarray(out_a.im), atol=5e-6)
-        np.testing.assert_allclose(float(st_b.phase), float(st_a.phase),
-                                   atol=1e-5)
-        np.testing.assert_allclose(float(st_b.freq), float(st_a.freq),
-                                   atol=1e-6)
-
-    import pytest
-
-    blk = blocks.CostasLoop(0.02, 2, planar=True, scalar=True)
-    st = blk.init_state()
-    st, (out,), _ = blk.apply(st, [planar.PC(xr[:2048], xi[:2048])])
-    assert np.asarray(out.re).shape == (2048,)
-
-    with pytest.raises(ValueError, match="planar"):
-        blocks.CostasLoop(0.02, 2, scalar=True)
+            st, out = run(st, planar.PC(jnp.asarray(x.real[lo:hi]),
+                                        jnp.asarray(x.imag[lo:hi])))
+            got.append(np.asarray(out.re) + 1j * np.asarray(out.im))
+        want = _costas_numpy(x.astype(np.complex128), 0.02, order)
+        np.testing.assert_allclose(np.concatenate(got), want, rtol=1e-3,
+                                   atol=2e-3)
+    blk = blocks.CostasLoop(0.02, 2, planar=True)
+    _, (out,), _ = blk.apply(blk.init_state(),
+                             [planar.PC(jnp.asarray(x.real),
+                                        jnp.asarray(x.imag))])
+    np.testing.assert_allclose(
+        np.asarray(out.re) + 1j * np.asarray(out.im),
+        _costas_numpy(x.astype(np.complex128), 0.02, 2), rtol=1e-3,
+        atol=2e-3)
 
 
-def test_costas_scalar_flag_conflicts_rejected():
-    """Review finding (round 5): scalar is exclusive with chunked and with
-    num_streams — silent fallback to a different engine is an error."""
-    import pytest
-
+def test_costas_block_execution_shape_conflicts_rejected():
+    """chunked is exclusive with num_streams and needs planar frames —
+    a silent fallback to a different engine is an error."""
     from clenabled_tpu import blocks
 
     with pytest.raises(ValueError, match="exclusive"):
-        blocks.CostasLoop(0.02, 2, planar=True, chunked=True, scalar=True)
-    with pytest.raises(ValueError, match="exclusive"):
-        blocks.CostasLoop(0.02, 2, planar=True, scalar=True, num_streams=4)
+        blocks.CostasLoop(0.02, 2, planar=True, chunked=True, num_streams=4)
+    with pytest.raises(ValueError, match="planar"):
+        blocks.CostasLoop(0.02, 2, chunked=True)

@@ -235,7 +235,7 @@ def test_long_run_stability():
 
 
 def test_multirate_interp_and_decimator_graph():
-    """VERDICT #7: a 1:4 interpolator feeding a 1/2 decimating filter runs
+    """A 1:4 interpolator feeding a 1/2 decimating filter runs
     through the scheduler (mismatched quanta resolved by super-framing),
     matches the dsp-layer composition, and checkpoints/resumes."""
     import os
@@ -308,8 +308,8 @@ def test_multirate_auto_frame_size():
 
 def test_compile_precision_flag():
     """Flowgraph.compile(precision="float32") traces the step under exact
-    matmul precision (numerically a no-op on CPU; on TPU it restores
-    1e-7-class f32 sums — BENCH_TPU.md round-3 audit) and survives a
+    matmul precision (numerically a no-op on CPU, where float32 dots are
+    exact already) and survives a
     refresh()."""
     import numpy as np
     from clenabled_tpu import blocks

@@ -111,9 +111,9 @@ def test_apply_validates_shape():
 
 
 def test_channel_major_matches_time_major():
-    """xengine_correlate_channel_major (the TPU-native marshal + optional
+    """xengine_correlate_channel_major (the channel-major marshal + optional
     bf16 Gram) must equal the time-major planar path exactly on ≤8-bit
-    quantized data (bf16×bf16 MXU products are exact; f32 accumulate)."""
+    quantized data (bf16×bf16 products are exact; f32 accumulate)."""
     import jax.numpy as jnp
 
     from clenabled_tpu.dsp import planar
@@ -235,135 +235,102 @@ def test_channel_major_requires_planar():
         XEngine(1, 2, 4, planar=False, channel_major=True)
 
 
-def test_pallas_gram_stacked_matches_einsum_exact():
-    """Round-3 Pallas stacked-Gram kernel (triangular-only compute): must
-    be integer-EXACT against the einsum path on int8 and match bf16 to
-    fp32 accumulation tolerance; full matrix and triangular order."""
-    import jax.numpy as jnp
+def _gram_ref_int(zr, zi):
+    """NumPy int64 oracle of the stacked Gram: gr = zr·zrᵀ + zi·ziᵀ and
+    gi = b − bᵀ with b = zi·zrᵀ, accumulated over T per channel."""
+    zr = np.asarray(zr, np.int64)
+    zi = np.asarray(zi, np.int64)
+    gr = np.einsum("ftk,ftl->fkl", zr, zr) + np.einsum("ftk,ftl->fkl", zi, zi)
+    b = np.einsum("ftk,ftl->fkl", zi, zr)
+    return gr, b - np.swapaxes(b, -1, -2)
 
-    from clenabled_tpu.dsp import xengine
 
+def _triangular_ref(g, s, p):
+    """xGPU triangular order, written out as loops: baselines (s1 ≥ s2)
+    in row order, pol products XX, XY, YX, YY."""
+    rows = []
+    for s1 in range(s):
+        for s2 in range(s1 + 1):
+            rows.append([g[:, s1 * p + p0, s2 * p + p1]
+                         for p0 in range(p) for p1 in range(p)])
+    return np.transpose(np.asarray(rows), (2, 0, 1))       # [F, nb, p²]
+
+
+def test_stacked_gram_int8_and_bf16_exact_vs_numpy():
+    """S=64 dual-pol: the int8 stacked Gram is integer-exact against the
+    NumPy int64 oracle; the float outputs (full matrix and triangular
+    order) and the bf16 route are exact too, since every sum here stays
+    below 2^24."""
     rng = np.random.default_rng(5)
     f, t, s, p = 4, 256, 64, 2
     q = rng.integers(-63, 64, (2, f, t, s * p))
-    zr8 = jnp.asarray(q[0], jnp.int8)
-    zi8 = jnp.asarray(q[1], jnp.int8)
-    ref = xengine.xengine_correlate_stacked(zr8, zi8, npol=p,
-                                            use_pallas=False)
-    got = xengine.xengine_correlate_stacked(zr8, zi8, npol=p,
-                                            use_pallas=True)
-    np.testing.assert_array_equal(np.asarray(got.re), np.asarray(ref.re))
-    np.testing.assert_array_equal(np.asarray(got.im), np.asarray(ref.im))
-    # full-matrix output format too
-    reff = xengine.xengine_correlate_stacked(
-        zr8, zi8, npol=p, use_pallas=False,
-        output_format=xengine.CLXCORR_FULL_MATRIX)
-    gotf = xengine.xengine_correlate_stacked(
-        zr8, zi8, npol=p, use_pallas=True,
-        output_format=xengine.CLXCORR_FULL_MATRIX)
-    np.testing.assert_array_equal(np.asarray(gotf.re), np.asarray(reff.re))
-    np.testing.assert_array_equal(np.asarray(gotf.im), np.asarray(reff.im))
-    # bf16 (exact for <=8-bit quantized streams)
-    zrb = jnp.asarray(q[0], jnp.bfloat16)
-    zib = jnp.asarray(q[1], jnp.bfloat16)
-    refb = xengine.xengine_correlate_stacked(zrb, zib, npol=p,
-                                             use_pallas=False)
-    gotb = xengine.xengine_correlate_stacked(zrb, zib, npol=p,
-                                             use_pallas=True)
-    np.testing.assert_allclose(np.asarray(gotb.re), np.asarray(refb.re),
-                               rtol=1e-6)
-    np.testing.assert_allclose(np.asarray(gotb.im), np.asarray(refb.im),
-                               rtol=1e-6)
+    want_r, want_i = _gram_ref_int(q[0], q[1])
+    gr, gi = xengine.xengine_gram_stacked(jnp.asarray(q[0], jnp.int8),
+                                          jnp.asarray(q[1], jnp.int8))
+    assert gr.dtype == jnp.int32
+    np.testing.assert_array_equal(np.asarray(gr, np.int64), want_r)
+    np.testing.assert_array_equal(np.asarray(gi, np.int64), want_i)
+    for dt in (jnp.int8, jnp.bfloat16):
+        zr, zi = jnp.asarray(q[0], dt), jnp.asarray(q[1], dt)
+        full = xengine.xengine_correlate_stacked(
+            zr, zi, npol=p, output_format=xengine.CLXCORR_FULL_MATRIX)
+        np.testing.assert_array_equal(np.asarray(full.re), want_r)
+        np.testing.assert_array_equal(np.asarray(full.im), want_i)
+        tri = xengine.xengine_correlate_stacked(zr, zi, npol=p)
+        np.testing.assert_array_equal(np.asarray(tri.re),
+                                      _triangular_ref(want_r, s, p))
+        np.testing.assert_array_equal(np.asarray(tri.im),
+                                      _triangular_ref(want_i, s, p))
 
 
-def test_pallas_gram_stacked_block_triangular_sp256():
-    """k=2 lane-block case (S=128, 2 pol → S·P=256): the block-triangular
-    schedule + XLA mirror assembly must stay integer-exact vs the einsum."""
-    import jax.numpy as jnp
-
-    from clenabled_tpu.dsp import xengine
-
+def test_stacked_gram_sp256_exact_vs_numpy():
+    """S=128 dual-pol (S·P = 256), both output formats, integer-exact."""
     rng = np.random.default_rng(7)
     f, t, s, p = 2, 128, 128, 2
     q = rng.integers(-31, 32, (2, f, t, s * p))
-    zr8 = jnp.asarray(q[0], jnp.int8)
-    zi8 = jnp.asarray(q[1], jnp.int8)
-    for fmt in (xengine.CLXCORR_TRIANGULAR_ORDER, xengine.CLXCORR_FULL_MATRIX):
-        ref = xengine.xengine_correlate_stacked(zr8, zi8, npol=p,
-                                                use_pallas=False,
-                                                output_format=fmt)
+    want_r, want_i = _gram_ref_int(q[0], q[1])
+    zr8, zi8 = jnp.asarray(q[0], jnp.int8), jnp.asarray(q[1], jnp.int8)
+    for fmt, conv in ((xengine.CLXCORR_TRIANGULAR_ORDER,
+                       lambda g: _triangular_ref(g, s, p)),
+                      (xengine.CLXCORR_FULL_MATRIX, lambda g: g)):
         got = xengine.xengine_correlate_stacked(zr8, zi8, npol=p,
-                                                use_pallas=True,
                                                 output_format=fmt)
-        np.testing.assert_array_equal(np.asarray(got.re), np.asarray(ref.re))
-        np.testing.assert_array_equal(np.asarray(got.im), np.asarray(ref.im))
+        np.testing.assert_array_equal(np.asarray(got.re), conv(want_r))
+        np.testing.assert_array_equal(np.asarray(got.im), conv(want_i))
 
 
-def _gram_ref_int(zr, zi):
-    """NumPy int64 oracle for xengine_gram_stacked: a = zr·zrᵀ + zi·ziᵀ,
-    b = zi·zrᵀ, accumulated over T per channel."""
-    zr = np.asarray(zr, np.int64)
-    zi = np.asarray(zi, np.int64)
-    a = np.einsum("ftk,ftl->fkl", zr, zr) + np.einsum("ftk,ftl->fkl", zi, zi)
-    b = np.einsum("ftk,ftl->fkl", zi, zr)
-    return a, b
-
-
-@pytest.mark.parametrize("t,t_tile,sp", [
-    (192, 64, 128),   # odd nt=3: global-index slot parity across channels
-    (256, 64, 128),   # even nt=4: multi-tile accumulation
-    (192, 64, 256),   # kb=2 block-triangular + multi-tile + odd nt
-])
-def test_pallas_gram_stacked_multitile_exact(t, t_tile, sp):
-    """Regression for the multi-tile path of xengine_gram_stacked: the
-    cross-channel prefetch and double-buffer slot parity follow the GLOBAL
-    grid index (fch*nt + it) — the round-3 OS-PFB bug class.  The suite's
-    other Gram tests use t<=256 (t_tile clamps to t, nt=1); this pins
-    nt>1, odd nt, and the kb=2 schedule, integer-exact in interpret mode."""
-    import jax.numpy as jnp
-
-    from clenabled_tpu.dsp import pallas_kernels
-
+@pytest.mark.parametrize("t,sp", [(192, 128), (256, 128), (192, 256)])
+def test_gram_stacked_int8_shapes_exact(t, sp):
+    """The int32 stacked Gram at odd and even integration lengths and at
+    S·P = 128 and 256, integer-exact against the NumPy oracle."""
     rng = np.random.default_rng(11)
     f = 3
-    q = rng.integers(-63, 64, (2, f, t, sp))
-    zr = jnp.asarray(q[0], jnp.int8)
-    zi = jnp.asarray(q[1], jnp.int8)
-    a, b = pallas_kernels.xengine_gram_stacked(zr, zi, t_tile=t_tile,
-                                               interpret=True)
-    ra, rb = _gram_ref_int(q[0], q[1])
-    np.testing.assert_array_equal(np.asarray(a, np.int64), ra)
-    np.testing.assert_array_equal(np.asarray(b, np.int64), rb)
+    q = rng.integers(-127, 128, (2, f, t, sp))
+    gr, gi = xengine.xengine_gram_stacked(jnp.asarray(q[0], jnp.int8),
+                                          jnp.asarray(q[1], jnp.int8))
+    want_r, want_i = _gram_ref_int(q[0], q[1])
+    np.testing.assert_array_equal(np.asarray(gr, np.int64), want_r)
+    np.testing.assert_array_equal(np.asarray(gi, np.int64), want_i)
 
 
-@pytest.mark.parametrize("t,t_tile,sp", [
-    (192, 64, 128),   # kb=1, odd nt
-    (192, 64, 256),   # kb=2 + multi-tile + odd nt
-])
-def test_pallas_gram_stacked_tri_multitile_exact(t, t_tile, sp):
-    """Round 5: xengine_gram_stacked_tri emits gi = ir − irᵀ lower-
-    triangle blocks in-kernel (Mosaic VMEM transpose); integer-exact vs
-    the NumPy oracle including multi-tile accumulation and odd nt."""
-    import jax.numpy as jnp
-
-    from clenabled_tpu.dsp import pallas_kernels
-
+@pytest.mark.parametrize("t,sp", [(192, 128), (192, 256)])
+def test_correlate_stacked_triangular_int8_exact(t, sp):
+    """Triangular-order output of the int8 engine with the 1/127² scale
+    applied once: equal to the scaled NumPy oracle to float32 rounding of
+    the exact integers (every |G| here is below 2^24, so the int→float
+    conversion is exact and only the scale multiply rounds)."""
     rng = np.random.default_rng(13)
-    f = 3
+    f, p = 3, 2
+    s = sp // p
     q = rng.integers(-63, 64, (2, f, t, sp))
-    zr = jnp.asarray(q[0], jnp.int8)
-    zi = jnp.asarray(q[1], jnp.int8)
-    a_blk, gi_blk, tri_blocks = pallas_kernels.xengine_gram_stacked_tri(
-        zr, zi, t_tile=t_tile, interpret=True)
-    ra, rb = _gram_ref_int(q[0], q[1])
-    rgi = rb - np.swapaxes(rb, -1, -2)
-    kb = sp // 128
-    for n, (i, j) in enumerate(tri_blocks):
-        np.testing.assert_array_equal(
-            np.asarray(gi_blk[:, n], np.int64),
-            rgi[:, i * 128:(i + 1) * 128, j * 128:(j + 1) * 128],
-            err_msg=f"gi block {(i, j)}")
-        # a blocks unchanged by the tri variant
-        np.testing.assert_array_equal(
-            np.asarray(a_blk[:, n], np.int64),
-            ra[:, i * 128:(i + 1) * 128, j * 128:(j + 1) * 128])
+    scale = 1.0 / (127.0 * 127.0)
+    got = xengine.xengine_correlate_stacked(
+        jnp.asarray(q[0], jnp.int8), jnp.asarray(q[1], jnp.int8), npol=p,
+        scale=scale)
+    want_r, want_i = _gram_ref_int(q[0], q[1])
+    np.testing.assert_array_equal(
+        np.asarray(got.re),
+        _triangular_ref(want_r, s, p).astype(np.float32) * np.float32(scale))
+    np.testing.assert_array_equal(
+        np.asarray(got.im),
+        _triangular_ref(want_i, s, p).astype(np.float32) * np.float32(scale))
